@@ -1,6 +1,6 @@
-"""come_tpu — a TPU-native framework for ComE-family graph embedding training.
+"""come_tpu — a JAX framework for ComE-family graph embedding training.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 repo ``andompesta/nodeembedding-to-communityembedding`` (ComE, CIKM 2017):
 
 * O1 — skip-gram context loss over random-walk windows (negative sampling)
@@ -9,16 +9,16 @@ repo ``andompesta/nodeembedding-to-communityembedding`` (ComE, CIKM 2017):
 
 The reference's Cython hogwild SGD kernel (``utils/training_sdg_inner.pyx``,
 see SURVEY.md C1) is replaced by batched, deterministic gather → SDDMM →
-sigmoid → segment-sum scatter-add updates that run on the TPU MXU/VPU; its
+sigmoid → segment-sum scatter-add updates as batched matmuls; its
 ``multiprocessing`` walk writer (SURVEY.md C3) is replaced by a fused
-on-device random-walk kernel; sklearn's GaussianMixture (SURVEY.md C8) is
+on-device random walker; sklearn's GaussianMixture (SURVEY.md C8) is
 replaced by a batched EM step in XLA.
 
 Package layout (SURVEY.md §7 build plan):
 
 * ``graphs/``    — immutable CSR graph container, loaders, generators, registry
 * ``sampling/``  — alias-table negative sampling, fused random walks, window pairs
-* ``ops/``       — the hot kernels (jnp reference + Pallas TPU implementations)
+* ``ops/``       — the sparse primitives (gathers, SDDMM scores, scatter-adds)
 * ``losses/``    — O1/O2/O3 as pure ``(params, batch, rng) -> grads`` functions; XLA GMM
 * ``models/``    — ComE model state (embedding tables + community parameters)
 * ``trainer/``   — alternating optimization schedule, LR decay, train steps

@@ -34,73 +34,43 @@ class ComEConfig:
     down_sample: float = 0.0  # word2vec `sample`; 0 = off
     # "per_pair": reference semantics, k fresh negatives per pair (the numpy
     # oracle's model).  "shared": one pool of `shared_negatives` per SGD
-    # micro-step, scored via MXU matmuls (GraphVite-style; see
-    # losses/sgns_block.py) — the TPU fast path.
+    # micro-step, scored as dense matmuls (GraphVite-style; see
+    # losses/sgns_block.py) — the fast path.
     negative_mode: str = "per_pair"
     shared_negatives: int = 1024
-    # "auto": fused Pallas SGNS kernel on TPU when tables fit VMEM and
-    # negative_mode == "shared"; "never": always the XLA path; "always":
-    # force the kernel (interpret-mode off-TPU — tests only).
-    pallas: str = "auto"
-    # pairs per fused-kernel tile (sequential on TPU; the effective
-    # micro-batch granularity inside the kernel).  1024 on hardware —
-    # 1-D s32 operands carry XLA layout T(1024) and blocks must match.
-    pallas_tile_pairs: int = 1024
-    # walk-banded kernel: run the scoring/gradient matmuls in bf16 on the
-    # MXU (f32 accumulation, f32 master tables and updates).  ~4x MXU rate
-    # on v5e; SGD quality unaffected (validated e2e).  f32 by default so
+    # banded tiers: run the scoring/gradient matmuls in bf16 (f32
+    # accumulation, f32 master tables and updates).  f32 by default so
     # oracle-parity tests stay exact.
     walk_kernel_bf16: bool = False
-    # walk-banded kernel: allow bf16-RESIDENT tables (2B/elem, stochastic-
-    # rounding SGD writes, f32 gradient math) when f32 tables exceed the
-    # VMEM tier — extends the fused path to V ~ 114k @ d=128 (Flickr).
-    walk_kernel_bf16_tables: bool = True
-    # O2 (edge pass) tier: "auto" picks the fastest eligible tier —
-    # star (fused tied star kernel, ops/pallas_star_sgns.py: arcs grouped
-    # by source, ~2 pairs/slot and 1 gather+1 scatter per slot) ->
-    # paired (walk-banded kernel's edge mode) -> xla.  "star"/"paired"/
-    # "xla" force a tier (paired kept for A/B and the verify gate).
+    # O2 (edge pass) tier: "auto" picks the banded star tier
+    # (losses/star_banded.py: arcs grouped by source, ~2 pairs/slot and
+    # 1 gather + 1 scatter per slot) when the collision envelope admits it,
+    # else the flat XLA path.  "star"/"xla" force a tier.
     o2_mode: str = "auto"
-    # walk-banded kernel: walk-groups per shared negative pool (R).  The
-    # pool's accumulated gradient applies at every R-block boundary —
-    # small R = fresher negatives + tighter stability, large R = fewer
-    # staging row-ops.  The stability envelope scales like the collision
-    # bound: keep R * NWL pool-slot updates << V.
-    walk_pool_refresh: int = 1
-    # banded XLA tier (losses/sgns_banded.py): the walk-banded MXU
-    # formulation with HBM-resident tables — carries graphs past the
-    # fused kernels' VMEM ceiling (V > ~196k @ d=128).  "auto": used on
-    # TPU when the fused walk kernel is ineligible; "never"; "always"
-    # (force, incl. CPU — tests).
+    # banded XLA tier (losses/sgns_banded.py): walk-banded matmuls over
+    # device-memory tables.  "auto": used when shared negatives are on and
+    # the block's collision envelope holds; "never"; "always" (force, any
+    # graph size — tests).
     banded: str = "auto"
-    # walks per banded block (the synchronous update unit; also bounds the
-    # [Bc, L, L] score temporaries).  1024 measured best on v5e: the tier
-    # is gather/scatter row-rate bound and bigger blocks amortize the
-    # per-block fixed costs.
+    # largest walks per banded block (the synchronous update unit; also
+    # bounds the [Bc, L, L] score temporaries).  The tier is gather/scatter
+    # row-rate bound, so bigger blocks amortize the per-block fixed costs;
+    # "auto" halves the block until the collision envelope holds.
     banded_walk_block: int = 1024
     # duplicate-combining sort+segment-sum scatter (hub rows repeat within
-    # a block) vs plain XLA scatter-add.  Off by default: plain scatter
-    # measured ~1.5x faster at SBM-like duplication; turn on for
+    # a block) vs plain XLA scatter-add.  Off by default; meant for
     # heavy-hub power-law batches.
     banded_sorted_scatter: bool = False
-    # banded-tier pool stability bound: max walk SLOTS served by one
-    # fresh negative pool.  Every trained pair adds ~negative/KP of
-    # gradient mass to EVERY pool row; applying a whole 1024-walk
-    # block's mass (~2000 stale unit-gradients/row at KP=2048) from one
-    # pool measurably diverges at synthetic-10m scale (exponential
-    # mean-drift onset ~300 macro steps — docs/PERF.md round-5 note).
-    # The effective banded block is min(banded_walk_block,
-    # banded_pool_slots / walk_length), each block drawing a FRESH pool
-    # — the banded analog of the fused kernel's walk_pool_refresh bound.
-    banded_pool_slots: int = 20480
-    # fresh-walk generation strategy when the fused walk kernel runs:
-    # "scan" = the lax.scan device walker feeds the kernel; "kernel" =
-    # walks are generated INSIDE the fused kernel from VMEM-resident CSR
-    # (no separate walker pass at all; randomness is one host threefry
-    # bit-matrix per macro step).  "kernel" needs the CSR to fit the
-    # kernel's VMEM side budget (~12MB: (V+1+E)*4B) and applies to the
-    # single-device fused path.
-    walk_gen: str = "scan"
+    # banded-tier pool stability bound: the most unit gradients one pool
+    # row may absorb from one synchronous application.  Every trained pair
+    # adds ~negative/KP of gradient to EVERY pool row, so a pool serving n
+    # walks hands each row ~n*L*(W+1)*negative/KP of them; the block is
+    # split into chunks of walks that each draw a FRESH pool.  Too much
+    # mass drifts the whole context table along one direction and
+    # diverges: ~550 per row diverges at blogcatalog scale (KP=512)
+    # within 50 macro steps, ~275 trains it to the xla tier's loss and
+    # NMI (see PERF.md).
+    banded_pool_mass: int = 275
     # walk-corpus regeneration cadence for the device corpus: 1 = fresh
     # walks every O1 epoch; N = regenerate every N epochs; 0 = generate
     # ONCE and reuse — the reference's own behavior (deepwalk lineage:
@@ -129,8 +99,7 @@ class ComEConfig:
     # (reduced window + range); sorting valid pairs first and truncating to
     # this fraction of slots halves SGD work per trained pair.  Slots beyond
     # the budget are dropped (stochastic, ~0 at these batch sizes).
-    # 0 disables compaction (default: the argsort costs more than the
-    # masked slots it saves on TPU; kept for host-feeder pipelines).
+    # 0 disables compaction (the default).
     compact_budget: float = 0.0
     # row exchange for model>1 sharded training (shared-negative mode):
     # "a2a" = bucketed all-to-all (batch ALSO sliced over 'model', traffic
@@ -139,21 +108,8 @@ class ComEConfig:
     # debug/fallback exchange).  "auto" (default) resolves to a2a whenever
     # the mesh has model>1: the id interleave + served-fraction monitoring
     # make the bucketed exchange safe by default (BASELINE.json:5's
-    # "boundary rows exchanged all-to-all over ICI").
+    # "boundary rows exchanged all-to-all").
     row_exchange: str = "auto"
-    # double-buffer the row exchange in the row-sharded walk tiers: the
-    # NEXT block's rows are gathered while the current block computes
-    # (software pipelining inside the scan), at the cost of the gathered
-    # rows being one block stale — the same staleness class as the
-    # reference's hogwild reads (SURVEY.md §3.2).  Exchange plans (the id
-    # all-to-alls) are always hoisted out of the block loop; this flag only
-    # controls the stale-read row prefetch.  "auto" (default) resolves per
-    # backend/tier from the measured A/B (exchange_overlap_ab): ON on TPU
-    # (async ICI collectives hide behind the kernel), and on CPU-virtual
-    # meshes ON for the fused-kernel tier but OFF for the banded tier,
-    # where the A/B showed a small regression (docs/PERF.md).  True/False
-    # force it.
-    overlap_exchange: bool | str = "auto"
     # bucket slack for the a2a exchange: capacity = ceil(B/M * slack).
     # Ids past an owner's bucket are skipped that micro-step (reported by
     # the served mask); the trainer interleave-relabels node ids so
@@ -204,8 +160,8 @@ PRESETS: dict[str, ComEConfig] = {
     ),
     # config 2/3: BlogCatalog O1+O2(+O3), d=128, k=5, K=39.
     # Production presets default to the fast path (shared negatives +
-    # fused kernels — quality validated end-to-end, see docs/PERF.md);
-    # set negative_mode='per_pair' for strict reference semantics.
+    # banded tiers — quality validated end-to-end by chip_smoke.py's NMI
+    # floor); set negative_mode='per_pair' for strict reference semantics.
     "blogcatalog": ComEConfig(
         num_communities=39, gmm_n_init=2,
         negative_mode="shared", shared_negatives=512,

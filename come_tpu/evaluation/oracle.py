@@ -7,7 +7,7 @@ hard part 1); the well-defined parity target is the *expected* (race-free)
 gradient of a fixed batch computed from the same initial tables.  This
 module computes that in plain numpy loops — deliberately scalar, mirroring
 the reference's per-pair Cython arithmetic (``utils/training_sdg_inner.pyx``
-[R]) — and the jnp/Pallas paths must match it to float tolerance.
+[R]) — and the jnp paths must match it to float tolerance.
 
 Semantic note (documented divergence, SURVEY.md §7): the hogwild kernel
 applies each pair's update before scoring the next pair; synchronous
@@ -87,8 +87,8 @@ def sgns_shared_pool_grads(
     mask: np.ndarray,
     negative_weight: float,
 ):
-    """Oracle for the SHARED-NEGATIVE-POOL fast path (losses/sgns_block.py,
-    ops/pallas_sgns.py): every valid pair scores all KP pool rows with
+    """Oracle for the SHARED-NEGATIVE-POOL fast path (losses/sgns_block.py):
+    every valid pair scores all KP pool rows with
     weight ``negative_weight`` (= k / KP, keeping per-pair noise work
     calibrated to the reference's k per-pair draws,
     ``utils/training_sdg_inner.pyx`` [R]).
@@ -127,15 +127,15 @@ def walk_banded_shared_pool_grads(
     negative_weight: float,
 ):
     """Oracle for ONE synchronous block of the walk-banded fast path
-    (ops/pallas_walk_sgns.py, losses/sgns_banded.py): every in-window
+    (losses/sgns_banded.py): every in-window
     in-walk context of every center is a positive pair (center t trains
     contexts u with 0 < |u-t| <= wrow[t], the reference's reduced-window
     enumeration), and each center with ``n_t`` trained pairs scores all KP
     shared pool rows with weight ``negative_weight * n_t``.
 
     All gradients are with respect to the tables AS OF block start (the
-    kernels' group-synchronous semantics); multi-block steps apply blocks
-    sequentially — compose by calling per block.
+    block-synchronous semantics); multi-block steps apply blocks
+    sequentially — see :func:`walk_banded_sequential`.
 
     Args:
       walks: int [B, L] node ids.  wrow: int [B, L] per-center window draws.
@@ -176,7 +176,7 @@ def walk_banded_shared_pool_grads(
     return loss, npairs, d_in, d_out
 
 
-def walk_banded_kernel_sequential(
+def walk_banded_sequential(
     emb_in: np.ndarray,
     emb_out: np.ndarray,
     walks: np.ndarray,
@@ -184,50 +184,40 @@ def walk_banded_kernel_sequential(
     wrow: np.ndarray,
     negative_weight: float,
     lr: float,
-    walks_per_group: int,
-    pool_refresh: int = 1,
-    paired: bool = False,
+    walks_per_block: int,
 ):
-    """Oracle for a MULTI-GROUP fused-kernel step (ops/pallas_walk_sgns.py):
-    the exact sequential composition the kernel executes, built from the
-    single-block semantics of :func:`walk_banded_shared_pool_grads` (which
-    documents "multi-block steps apply blocks sequentially — compose by
-    calling per block").
+    """Oracle for a MULTI-BLOCK banded step (losses/sgns_banded.py): the
+    exact sequential composition of the single-block semantics of
+    :func:`walk_banded_shared_pool_grads`.
 
-    Per R-group block (R = ``pool_refresh``):
-      * the negative pool's rows are STAGED once at block start (groups
-        score negatives against these rows even after later groups update
-        the tables);
-      * each group of ``walks_per_group`` walks computes its banded
-        positive gradients and its pool gradient against the CURRENT
-        tables (walk rows) / STAGED pool rows, then applies its walk-row
-        updates synchronously (duplicates sum);
-      * the pool gradient accumulates across the block and is applied
-        once at the block boundary (read-modify-write, so walk updates to
-        pool rows within the block are preserved).
+    Per block of ``walks_per_block`` walks:
+      * the block's positive and pool gradients are computed against the
+        tables as of block start (walk rows and its negative pool's rows);
+      * the walk-row updates apply synchronously (duplicates sum), then the
+        pool gradient applies (read-modify-write, so walk updates to pool
+        rows within the block are preserved).
 
     Args:
-      walks: int [B, L] with B a multiple of walks_per_group.
-      pools: int [n_blocks, KP] (one pool per R-group block).
+      walks: int [B, L] with B a multiple of walks_per_block.
+      pools: int [n_blocks, KP] (a fresh pool per block) or [KP] (the same
+        pool ids for every block, rows still re-read per block).
       wrow:  int [B, L] per-center window draws.
-      paired: O2 edge mode — slots 2i/2i+1 are one edge and each slot's
-        only context is its partner (wrow ignored).
     Returns (emb_in', emb_out', loss, n_pairs).
     """
     ei = emb_in.astype(np.float32).copy()
     eo = emb_out.astype(np.float32).copy()
     B, L = walks.shape
-    nw = walks_per_group
+    nw = walks_per_block
     G = B // nw
-    R = pool_refresh
+    pools = np.asarray(pools, np.int64)
+    if pools.ndim == 1:
+        pools = np.broadcast_to(pools, (G,) + pools.shape)
     loss = 0.0
     npairs = 0
     for g in range(G):
-        blk = g // R
-        if g % R == 0:
-            pool = pools[blk].astype(np.int64)
-            staged = eo[pool].copy()  # pool rows as of block start
-            dneg = np.zeros_like(staged)
+        pool = pools[g]
+        staged = eo[pool].copy()  # pool rows as of block start
+        dneg = np.zeros_like(staged)
         w = walks[g * nw:(g + 1) * nw]
         wr = wrow[g * nw:(g + 1) * nw]
         d_in = np.zeros_like(ei)
@@ -238,12 +228,7 @@ def walk_banded_kernel_sequential(
                 ww = int(wr[b, t])
                 phi = ei[i]
                 n_t = 0
-                ctxs = (
-                    [t ^ 1]
-                    if paired
-                    else range(max(0, t - ww), min(L, t + ww + 1))
-                )
-                for u in ctxs:
+                for u in range(max(0, t - ww), min(L, t + ww + 1)):
                     if u == t:
                         continue
                     j = int(w[b, u])
@@ -254,7 +239,6 @@ def walk_banded_kernel_sequential(
                     d_out[j] += gr * phi
                     n_t += 1
                 npairs += n_t
-                # negatives vs the STAGED pool rows; gradient deferred
                 for k in range(len(pool)):
                     s = float(phi @ staged[k])
                     gr = sigmoid(s) * negative_weight * n_t
@@ -266,10 +250,8 @@ def walk_banded_kernel_sequential(
                     dneg[k] += gr * phi
         ei -= lr * d_in
         eo -= lr * d_out
-        if g % R == R - 1 or g == G - 1:
-            # block boundary: apply the accumulated pool gradient (RMW)
-            for k in range(len(pool)):
-                eo[pool[k]] -= lr * dneg[k]
+        for k in range(len(pool)):  # pool gradient last (RMW)
+            eo[pool[k]] -= lr * dneg[k]
     return ei, eo, loss, npairs
 
 
@@ -309,73 +291,64 @@ def gmm_log_likelihood(X, means, covs, weights):
     return float(np.mean(m + np.log(np.exp(lp - m[:, None]).sum(axis=1))))
 
 
-def star_kernel_sequential(
+def star_banded_sequential(
     emb: np.ndarray,
     slots: np.ndarray,
     meta: np.ndarray,
-    pools: np.ndarray,
+    pool: np.ndarray,
     negative_weight: float,
     lr: float,
-    pool_refresh: int = 1,
-    group_slots: int = 1024,
-    block: int = 128,
+    block_rows: int,
 ) -> tuple[np.ndarray, float, float]:
-    """Numpy oracle of the star O2 kernel's group semantics
-    (``ops/pallas_star_sgns.py``): groups of ``group_slots`` slots run
-    sequentially; each group's gradients are computed from the TIED
-    table state at group start and applied by sequential per-slot RMW;
-    the shared pool is staged once per ``pool_refresh``-group block and
-    its accumulated gradient applies at the block end.  The mask pairs
-    hub<->neighbor slots of each row-local segment (``sampling/stars.py``
-    metadata encoding; pads self-mask).
+    """Numpy oracle of the banded star O2 step (``losses/star_banded.py``).
+
+    ``slots``/``meta`` are [NR, R] layout rows; blocks of ``block_rows``
+    rows run sequentially.  Each block's gradients are computed from the
+    TIED table state at block start and applied per slot (duplicates
+    sum); the shared pool's rows are read at block start and its gradient
+    applies at the block end.  ``pool`` is [KP] (one pool for every
+    block) or [G, KP] (block g draws its negatives from ``pool[g]``).  The mask pairs hub<->neighbor slots of each
+    row-local segment (``sampling/stars.py`` metadata encoding; pads
+    self-mask).
 
     Returns (emb', total_loss, total_pairs).
     """
     emb = emb.astype(np.float32).copy()
-    slots = np.asarray(slots, np.int64).reshape(-1)
-    meta = np.asarray(meta, np.int64).reshape(-1)
-    G = slots.shape[0] // group_slots
-    pools = np.asarray(pools, np.int64)
-    if pools.ndim == 1:
-        pools = np.broadcast_to(
-            pools, (-(-G // pool_refresh),) + pools.shape
-        )
+    slots = np.asarray(slots, np.int64)
+    meta = np.asarray(meta, np.int64)
+    NR, R = slots.shape
+    pools = np.asarray(pool, np.int64)
     total_loss = 0.0
     total_pairs = 0.0
-    dneg_acc = None
-    for g in range(G):
-        if g % pool_refresh == 0:
-            pool = pools[g // pool_refresh]
-            cneg0 = emb[pool].copy()
-            dneg_acc = np.zeros_like(cneg0)
-        sl = slots[g * group_slots : (g + 1) * group_slots]
-        mt = meta[g * group_slots : (g + 1) * group_slots]
-        phi = emb[sl].copy()
+    for g, r0 in enumerate(range(0, NR, block_rows)):
+        pool = pools if pools.ndim == 1 else pools[g]
+        sl = slots[r0 : r0 + block_rows]  # [Br, R]
+        mt = meta[r0 : r0 + block_rows]
+        cneg0 = emb[pool].copy()
+        phi = emb[sl]  # [Br, R, d], block-start rows
         seg = mt >> 1
         hub = mt & 1
-        blk = np.arange(group_slots) // block
         m = (
-            (seg[:, None] == seg[None, :])
-            & ((hub[:, None] ^ hub[None, :]) == 1)
-            & (blk[:, None] == blk[None, :])
-        ).astype(np.float32)
-        s = phi @ phi.T
+            (seg[:, :, None] == seg[:, None, :])
+            & ((hub[:, :, None] ^ hub[:, None, :]) == 1)
+        ).astype(np.float32)  # [Br, R, R]
+        s = np.einsum("brd,bsd->brs", phi, phi)
         sg = 1.0 / (1.0 + np.exp(-s))
         gpos = (sg - 1.0) * m
-        total_loss += -np.sum(m * np.log(np.maximum(sg, 1e-30)))
-        n_t = m.sum(1, keepdims=True)
+        total_loss += -float(np.sum(m * np.log(np.maximum(sg, 1e-30))))
+        n_t = m.sum(2)[..., None]  # [Br, R, 1] source-pairs per slot
         total_pairs += float(n_t.sum())
-        dphi = gpos @ phi + gpos.T @ phi  # tied: source + context side
-        sn = phi @ cneg0.T
+        # tied: source side + context side land on the same rows
+        dphi = np.einsum("brs,bsd->brd", gpos, phi)
+        dphi += np.einsum("bsr,bsd->brd", gpos, phi)
+        sn = phi @ cneg0.T  # [Br, R, KP]
         sgn = 1.0 / (1.0 + np.exp(-sn))
         gneg = sgn * (negative_weight * n_t)
-        total_loss += -negative_weight * np.sum(
-            n_t * np.log(np.maximum(1.0 - sgn, 1e-30))
+        total_loss += -negative_weight * float(
+            np.sum(n_t * np.log(np.maximum(1.0 - sgn, 1e-30)))
         )
         dphi += gneg @ cneg0
-        dneg_acc += gneg.T @ phi
-        for t in range(group_slots):  # sequential RMW, kernel order
-            emb[sl[t]] -= lr * dphi[t]
-        if g % pool_refresh == pool_refresh - 1 or g == G - 1:
-            np.add.at(emb, pool, -lr * dneg_acc)
+        np.add.at(emb, sl.reshape(-1), -lr * dphi.reshape(-1, emb.shape[1]))
+        dneg = np.einsum("brk,brd->kd", gneg, phi)
+        np.add.at(emb, pool, -lr * dneg)
     return emb, total_loss, total_pairs

@@ -21,26 +21,19 @@ class ParityReport:
     o3_max_err: float
     loss_rel_err: float
     passed: bool
-    # fast-path rows: the SHIPPING kernels (walk-banded fused kernel for O1,
+    # fast-path rows: the SHIPPING steps (banded walk step for O1,
     # shared-pool block step for O2) vs the shared-pool/banded oracle
     # semantics — gradient-level gates, not just end-to-end NMI
     o1_fast_max_err: float = float("nan")
     o2_fast_max_err: float = float("nan")
-    # shipping-CONFIG rows: multi-group + pool_refresh>1 kernel step vs the
-    # composed sequential oracle, and the row-sharded (2,2)-mesh step vs
-    # the per-worker sum-of-deltas composition (VERDICT r2 item 6)
+    # shipping-CONFIG rows: a multi-block banded step vs the composed
+    # sequential oracle, and the row-sharded (2,2)-mesh banded step vs the
+    # per-worker sum-of-deltas composition
     o1_fast_multi_max_err: float = float("nan")
     o1_fast_rowsharded_max_err: float = float("nan")
-    # O2 paired-kernel row: the edge-mode walk kernel (tied composition
-    # new_in + new_out - old) vs the paired sequential oracle
-    o2_fanout_max_err: float = float("nan")
-    # O2 row-sharded mesh row (VERDICT r3 item 1): the (2,2)-mesh tied
-    # paired-kernel step (compact a2a-gathered tables, dn+dc routed back)
-    # vs per-worker paired oracles composed by sum-of-deltas
-    o2_rowsharded_max_err: float = float("nan")
-    # O2 STAR row (round 5, the shipping edge-pass tier): the fan-out
-    # grouped tied kernel (sampling/stars.py layout +
-    # ops/pallas_star_sgns.py) vs the star group-sequential oracle
+    # O2 STAR row (the shipping edge-pass tier): the banded star step
+    # (sampling/stars.py layout + losses/star_banded.py) vs the star
+    # block-sequential oracle
     o2_star_max_err: float = float("nan")
 
     def __str__(self):
@@ -52,8 +45,6 @@ class ParityReport:
             f"o2_fast={self.o2_fast_max_err:.2e} "
             f"o1_fast_multi={self.o1_fast_multi_max_err:.2e} "
             f"o1_fast_rowsharded={self.o1_fast_rowsharded_max_err:.2e} "
-            f"o2_fanout={self.o2_fanout_max_err:.2e} "
-            f"o2_rowsharded={self.o2_rowsharded_max_err:.2e} "
             f"o2_star={self.o2_star_max_err:.2e}"
         )
 
@@ -143,26 +134,28 @@ def check_gradient_parity(
     og3 = oracle.community_grads(emb_in, pi, centroid, inv_cov, beta)
     o3_err = float(np.abs(g3 - og3).max())
 
-    # ---- fast-path rows: gradient-level gates on the SHIPPING kernels ----
-    # O1-fast: the walk-banded fused kernel (one group, interpret mode —
-    # full window, single pool) vs the banded shared-pool oracle.  The
-    # kernel is an SGD *step*; with one synchronous group,
-    # new = old - lr * grad(initial tables), so the per-element check is
-    # |new - (old - lr*d_oracle)| / lr.
+    # ---- fast-path rows: gradient-level gates on the SHIPPING steps ----
+    # O1-fast: one block of the banded walk step (full window, single
+    # pool) vs the banded shared-pool oracle.  The step is an SGD *step*;
+    # with one synchronous block, new = old - lr * grad(initial tables),
+    # so the per-element check is |new - (old - lr*d_oracle)| / lr.
+    from come_tpu.losses.sgns_banded import banded_walk_sgns_step
     from come_tpu.losses.sgns_block import sgns_block_sgd_step
-    from come_tpu.ops.pallas_walk_sgns import NWL, fused_walk_sgns_step
 
     KP = 16
     W, L = 3, 12
-    nw = NWL // 128
+    nw = 8  # walks per banded block
     walks = rng.integers(0, V, (nw, L)).astype(np.int32)
     pool = rng.integers(0, V, KP).astype(np.int32)
     negw = negatives / KP
     lr = 0.025
-    ni, no, floss, _ = fused_walk_sgns_step(
+    key = jax.random.key(seed)
+    banded = dict(
+        window=W, walk_block=nw, reduced_window=False, mxu_bf16=False
+    )
+    ni, no, floss, _ = banded_walk_sgns_step(
         jnp.asarray(emb_in), jnp.asarray(emb_out), jnp.asarray(walks),
-        jnp.asarray(pool), lr, negw, 0, window=W, interpret=True,
-        reduced_window=False,
+        jnp.asarray(pool), lr, negw, key, **banded,
     )
     wrow = np.full((nw, L), W, np.int32)
     o_floss, _, o_din, o_dout = oracle.walk_banded_shared_pool_grads(
@@ -177,7 +170,7 @@ def check_gradient_parity(
         loss_rel, abs(float(floss) - o_floss) / max(abs(o_floss), 1e-9)
     )
 
-    # O2-fast: tied-table shared-pool block step (the production O2
+    # O2-fast: tied-table shared-pool block step (the flat O2
     # micro-step) vs the shared-pool oracle.
     nt, _, bloss, _ = sgns_block_sgd_step(
         jnp.asarray(emb_in), jnp.asarray(emb_in), jnp.asarray(s2),
@@ -196,23 +189,19 @@ def check_gradient_parity(
         loss_rel, abs(float(bloss) - o_bloss) / max(abs(o_bloss), 1e-9)
     )
 
-    # ---- shipping-config rows (VERDICT r2 item 6) ----
-    # O1-fast-multi: FOUR sequential groups with pool_refresh=2 (two
-    # R-blocks, pool gradient deferred to each block boundary) vs the
-    # composed sequential oracle.  This is the semantic shape of the
-    # production config (256 groups, R=8), scaled down.
-    G, R = 4, 2
+    # ---- shipping-config rows ----
+    # O1-fast-multi: FOUR sequential blocks, a fresh pool per block, vs
+    # the composed sequential oracle.
+    G = 4
     walks_m = rng.integers(0, V, (G * nw, L)).astype(np.int32)
-    pools_m = rng.integers(0, V, (G // R, KP)).astype(np.int32)
-    mi_, mo_, mloss, mnp = fused_walk_sgns_step(
+    pools_m = rng.integers(0, V, (G, KP)).astype(np.int32)
+    mi_, mo_, mloss, mnp = banded_walk_sgns_step(
         jnp.asarray(emb_in), jnp.asarray(emb_out), jnp.asarray(walks_m),
-        jnp.asarray(pools_m), lr, negw, 0, window=W, interpret=True,
-        reduced_window=False, pool_refresh=R,
+        jnp.asarray(pools_m), lr, negw, key, **banded,
     )
     wrow_m = np.full((G * nw, L), W, np.int32)
-    o_mi, o_mo, o_mloss, o_mnp = oracle.walk_banded_kernel_sequential(
-        emb_in, emb_out, walks_m, pools_m, wrow_m, negw, lr, nw,
-        pool_refresh=R,
+    o_mi, o_mo, o_mloss, o_mnp = oracle.walk_banded_sequential(
+        emb_in, emb_out, walks_m, pools_m, wrow_m, negw, lr, nw
     )
     o1m_err = max(
         float(np.abs(np.asarray(mi_) - o_mi).max()),
@@ -227,59 +216,25 @@ def check_gradient_parity(
         loss_rel, abs(float(mloss) - o_mloss) / max(abs(o_mloss), 1e-9)
     )
 
-    # O2-fanout: the paired (edge-mode) kernel with tied composition
-    # (trainer._o2_epoch_kernel) vs the paired sequential oracle run on
-    # two equal table copies composed the same way.
-    EPR = 6  # edges per row (12 slots)
-    rows2 = np.empty((2 * nw, 2 * EPR), np.int32)
-    eu = rng.integers(0, V, (2 * nw, EPR))
-    ev = rng.integers(0, V, (2 * nw, EPR))
-    rows2[:, 0::2] = eu
-    rows2[:, 1::2] = ev
-    pool2 = rng.integers(0, V, (1, KP)).astype(np.int32)
-    pi_, po_, ploss, pnp = fused_walk_sgns_step(
-        jnp.asarray(emb_in), jnp.asarray(emb_in), jnp.asarray(rows2),
-        jnp.asarray(pool2), lr, negw, 0, window=1, interpret=True,
-        reduced_window=False, pool_refresh=2, paired=True,
-    )
-    tied = np.asarray(pi_) + np.asarray(po_) - emb_in
-    o_pi, o_po, o_ploss, o_pnp = oracle.walk_banded_kernel_sequential(
-        emb_in, emb_in, rows2, pool2, np.ones_like(rows2), negw, lr, nw,
-        pool_refresh=2, paired=True,
-    )
-    o_tied = o_pi + o_po - emb_in
-    o2p_err = float(np.abs(tied - o_tied).max()) / lr
-    o2p_scale = float(np.abs((o_tied - emb_in) / lr).max())
-    assert float(pnp) == o_pnp == rows2.size, (float(pnp), o_pnp)
-    loss_rel = max(
-        loss_rel, abs(float(ploss) - o_ploss) / max(abs(o_ploss), 1e-9)
-    )
-
     # O2-star: the STAR fan-out tier (the shipping edge pass) — layout
-    # built from random edges, 2 kernel groups with a fresh pool per
-    # block (pool_refresh=2) — vs the star group-sequential oracle.
-    from come_tpu.ops.pallas_star_sgns import (
-        NWL as SNWL,
-        fused_star_sgns_step,
-    )
+    # built from random edges, two sequential row blocks sharing one
+    # pool's ids — vs the star block-sequential oracle.
+    from come_tpu.losses.star_banded import star_banded_sgns_step
     from come_tpu.sampling.stars import build_star_layout
 
     eu3 = rng.integers(0, V, 4 * nw).astype(np.int64)
     ev3 = (eu3 + 1 + rng.integers(0, V - 1, 4 * nw)) % V
     s3, m3 = build_star_layout(eu3, ev3, V)
-    G3 = max(2, -(-s3.shape[0] // SNWL))
-    s3 = np.pad(s3, (0, G3 * SNWL - s3.shape[0]))
-    m3 = np.pad(
-        m3, (0, G3 * SNWL - m3.shape[0]), constant_values=-2
-    )
-    pool3 = rng.integers(0, V, (-(-G3 // 2), KP)).astype(np.int32)
-    si, sloss, snp = fused_star_sgns_step(
+    s3, m3 = s3.reshape(-1, 128), m3.reshape(-1, 128)
+    if s3.shape[0] % 2:  # whole blocks of 2 rows; pad rows self-mask
+        s3 = np.pad(s3, ((0, 1), (0, 0)))
+        m3 = np.pad(m3, ((0, 1), (0, 0)), constant_values=-2)
+    si, sloss, snp = star_banded_sgns_step(
         jnp.asarray(emb_in), jnp.asarray(s3), jnp.asarray(m3),
-        jnp.asarray(pool3), lr, negw, 0, pool_refresh=2, interpret=True,
+        jnp.asarray(pool), lr, negw, row_block=2, mxu_bf16=False,
     )
-    o_si, o_sloss, o_snp = oracle.star_kernel_sequential(
-        emb_in, s3, m3, pool3, negw, lr, pool_refresh=2,
-        group_slots=SNWL,
+    o_si, o_sloss, o_snp = oracle.star_banded_sequential(
+        emb_in, s3, m3, pool, negw, lr, block_rows=2
     )
     o2s_err = float(np.abs(np.asarray(si) - o_si).max()) / lr
     o2s_scale = max(float(np.abs((o_si - emb_in) / lr).max()), 1.0)
@@ -288,23 +243,17 @@ def check_gradient_parity(
         loss_rel, abs(float(sloss) - o_sloss) / max(abs(o_sloss), 1e-9)
     )
 
-    # O1-fast-rowsharded: the (2,2)-mesh row-sharded kernel step
-    # (parallel/walk_exchange.py) vs per-worker sequential oracles composed
-    # by sum-of-deltas.  Needs >= 4 local devices (the test suite's
-    # virtual CPU mesh); reported as nan otherwise.
+    # O1-fast-rowsharded: the (2,2)-mesh row-sharded banded step
+    # (parallel/walk_exchange.py) vs per-worker oracles composed by
+    # sum-of-deltas.  Needs >= 4 local devices (the test suite's virtual
+    # CPU mesh); reported as nan otherwise.
     o1r_err = float("nan")
     o1r_scale = 1.0
-    o2r_err = float("nan")
-    o2r_scale = 1.0
     if len(jax.devices()) >= 4:
-        o1r_err, o1r_scale, rs_loss_rel = _rowsharded_parity(
+        o1r_err, o1r_scale, rs_loss_rel = rowsharded_parity(
             emb_in, emb_out, rng, nw, L, KP, W, lr, negw
         )
         loss_rel = max(loss_rel, rs_loss_rel)
-        o2r_err, o2r_scale, o2r_loss_rel = _o2_rowsharded_parity(
-            emb_in, rng, nw, KP, lr, negw
-        )
-        loss_rel = max(loss_rel, o2r_loss_rel)
 
     passed = (
         o1_err < atol + rtol * float(np.abs(odin).max() + np.abs(odout).max())
@@ -313,35 +262,38 @@ def check_gradient_parity(
         and o1f_err < atol + rtol * o1f_scale
         and o2f_err < atol + rtol * o2f_scale
         and o1m_err < atol + rtol * o1m_scale
-        and o2p_err < atol + rtol * o2p_scale
         and o2s_err < atol + rtol * o2s_scale
         and not (o1r_err == o1r_err and o1r_err >= atol + rtol * o1r_scale)
-        and not (o2r_err == o2r_err and o2r_err >= atol + rtol * o2r_scale)
         and loss_rel < 1e-3
     )
     return ParityReport(
         o1_err, o2_err, o3_err, loss_rel, passed, o1f_err, o2f_err,
-        o1m_err, o1r_err, o2p_err, o2r_err, o2s_err,
+        o1m_err, o1r_err, o2s_err,
     )
 
 
-def _rowsharded_parity(emb_in, emb_out, rng, nw, L, KP, W, lr, negw):
-    """Gradient gate for fused_walk_step_rowsharded on a (2,2) mesh.
+def rowsharded_parity(
+    emb_in, emb_out, rng, nw, L, KP, W, lr, negw, devices=None,
+    mxu_bf16=False, blocks=1,
+):
+    """Gradient gate for walk_exchange.banded_walk_step_rowsharded on a
+    (2,2) mesh.
 
-    Each of the 4 workers trains its own group of walks against its own
-    pool on an exact (capacity = U) bucketed exchange; the expected result
-    is table + sum over workers of (per-worker sequential oracle - table).
-    Returns (max_err/lr, grad_scale, loss_rel).
+    Each of the 4 workers trains ``blocks`` blocks of ``nw`` walks in order
+    (one pool for all of them when ``blocks`` is 1, else a fresh pool per
+    block) on an exact (capacity = U) bucketed exchange; the expected
+    result is table + sum over workers of (per-worker sequential oracle -
+    table).  Returns (max_err/lr, grad_scale, loss_rel).
     """
     import jax
     import jax.numpy as jnp
-    import numpy as np
     from jax import shard_map
     from jax.sharding import Mesh
     from jax.sharding import PartitionSpec as P
 
     from come_tpu.evaluation import oracle
-    from come_tpu.parallel.walk_exchange import fused_walk_step_rowsharded
+    from come_tpu.losses.sgns_banded import pack_tables, unpack_tables
+    from come_tpu.parallel.walk_exchange import banded_walk_step_rowsharded
 
     D = M = 2
     V, dim = emb_in.shape
@@ -349,49 +301,60 @@ def _rowsharded_parity(emb_in, emb_out, rng, nw, L, KP, W, lr, negw):
     v_pad = rows_per * M
     ei = np.pad(emb_in, ((0, v_pad - V), (0, 0)))
     eo = np.pad(emb_out, ((0, v_pad - V), (0, 0)))
-    walks = rng.integers(0, V, (D, M, nw, L)).astype(np.int32)
-    pools = rng.integers(0, V, (D, M, 1, KP)).astype(np.int32)
+    walks = rng.integers(0, V, (D, M, blocks * nw, L)).astype(np.int32)
+    pool_shape = (D, M, KP) if blocks == 1 else (D, M, blocks, KP)
+    pools = rng.integers(0, V, pool_shape).astype(np.int32)
+    devices = jax.devices()[: D * M] if devices is None else devices
+    mesh = Mesh(np.array(devices).reshape(D, M), ("data", "model"))
 
-    mesh = Mesh(
-        np.array(jax.devices()[: D * M]).reshape(D, M), ("data", "model")
-    )
-
-    def step(ns, cs, wk, sg):
-        ne, ce, loss, npairs, srv = fused_walk_step_rowsharded(
-            ns, cs, wk[0, 0], sg[0, 0], lr, negw, 0,
-            window=W, capacity_slack=float(M), interpret=True,
+    def step(cs, wk, sg):
+        cs, loss, npairs, srv = banded_walk_step_rowsharded(
+            cs, wk[0, 0], sg[0, 0], lr, negw, jax.random.key(0),
+            window=W, walk_block=nw, capacity_slack=float(M),
+            mxu_bf16=mxu_bf16, reduced_window=False,
         )
-        # loss/npairs come back psum'd (replicated); served is per-worker
         srv = jax.lax.pmean(srv, ("data", "model"))
-        return ne, ce, loss, npairs, srv
+        return cs, loss, npairs, srv
 
-    ne, ce, loss, npairs, srv = jax.jit(
+    combo, loss, npairs, srv = jax.jit(
         shard_map(
             step,
             mesh=mesh,
-            in_specs=(P("model"), P("model"),
-                      P("data", "model"), P("data", "model")),
-            out_specs=(P("model"), P("model"), P(), P(), P()),
+            in_specs=(P("model"), P("data", "model"), P("data", "model")),
+            out_specs=(P("model"), P(), P(), P()),
             check_vma=False,
         )
-    )(jnp.asarray(ei), jnp.asarray(eo), jnp.asarray(walks),
+    )(pack_tables(jnp.asarray(ei), jnp.asarray(eo)), jnp.asarray(walks),
       jnp.asarray(pools))
     assert float(srv) == 1.0, float(srv)
+    ne, ce = unpack_tables(combo)
 
+    # the M workers of a data row share their owners' deltas block by block
+    # (their gathers read shard + the row's accumulated delta), so a data
+    # row's blocks run in order with the M block deltas summed; data rows
+    # are summed once at the end
     wrow = np.full((nw, L), W, np.int32)
+    pools = pools.reshape(D, M, blocks, KP)
     d_in = np.zeros_like(ei)
     d_out = np.zeros_like(eo)
     o_loss = 0.0
     o_np = 0
     for di in range(D):
-        for mi in range(M):
-            wi, wo, wl, wnp = oracle.walk_banded_kernel_sequential(
-                ei, eo, walks[di, mi], pools[di, mi], wrow, negw, lr, nw
-            )
-            d_in += wi - ei
-            d_out += wo - eo
-            o_loss += wl
-            o_np += wnp
+        ti, to = ei.copy(), eo.copy()
+        for k in range(blocks):
+            bi, bo = np.zeros_like(ei), np.zeros_like(eo)
+            for mi in range(M):
+                wi, wo, wl, wnp = oracle.walk_banded_sequential(
+                    ti, to, walks[di, mi, k * nw:(k + 1) * nw],
+                    pools[di, mi, k], wrow, negw, lr, nw,
+                )
+                bi += wi - ti
+                bo += wo - to
+                o_loss += wl
+                o_np += wnp
+            ti, to = ti + bi, to + bo
+        d_in += ti - ei
+        d_out += to - eo
     exp_in, exp_out = ei + d_in, eo + d_out
     err = max(
         float(np.abs(np.asarray(ne) - exp_in).max()),
@@ -403,89 +366,6 @@ def _rowsharded_parity(emb_in, emb_out, rng, nw, L, KP, W, lr, negw):
     assert float(npairs) == o_np, (float(npairs), o_np)
     loss_rel = abs(float(loss) - o_loss) / max(abs(o_loss), 1e-9)
     return err, float(scale), loss_rel
-
-
-def _o2_rowsharded_parity(emb_in, rng, nw, KP, lr, negw):
-    """Gradient gate for the ROW-SHARDED tied paired-O2 step on a (2,2)
-    mesh (the form ShardedComETrainer._o2_rowsharded_scan runs per macro
-    step): each of the 4 workers trains its own packed edge rows against
-    its own pool through an exact (capacity = U) bucketed exchange on the
-    TIED node table; expected = table + sum over workers of
-    ((new_in - table) + (new_out - table)) from the per-worker paired
-    sequential oracle.  Returns (max_err/lr, grad_scale, loss_rel)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from jax import shard_map
-    from jax.sharding import Mesh
-    from jax.sharding import PartitionSpec as P
-
-    from come_tpu.evaluation import oracle
-    from come_tpu.parallel.walk_exchange import (
-        fused_walk_step_prepped,
-        plan_walk_macro_steps,
-    )
-
-    D = M = 2
-    V, dim = emb_in.shape
-    rows_per = -(-V // M)
-    v_pad = rows_per * M
-    ei = np.pad(emb_in, ((0, v_pad - V), (0, 0)))
-    EPR = 6  # edges per row (12 slots)
-    rows = np.empty((D, M, nw, 2 * EPR), np.int32)
-    rows[..., 0::2] = rng.integers(0, V, (D, M, nw, EPR))
-    rows[..., 1::2] = rng.integers(0, V, (D, M, nw, EPR))
-    pools = rng.integers(0, V, (D, M, 1, KP)).astype(np.int32)
-
-    mesh = Mesh(
-        np.array(jax.devices()[: D * M]).reshape(D, M), ("data", "model")
-    )
-
-    def step(ns, rk, sg):
-        plans, redges, rneg, served = plan_walk_macro_steps(
-            rk[0, 0][None], sg[0, 0][None], ns.shape[0], float(M)
-        )
-        plan = jax.tree.map(lambda a: a[0], plans)
-        crows = plan.gather(ns)
-        dn, dc, loss, npairs = fused_walk_step_prepped(
-            ns, ns, crows, crows, plan, redges[0], rneg[0], lr, negw, 0,
-            window=1, interpret=True, paired=True,
-        )
-        ns = ns + jax.lax.psum(dn + dc, "data")
-        loss = jax.lax.psum(loss, ("data", "model"))
-        npairs = jax.lax.psum(npairs, ("data", "model"))
-        srv = jax.lax.pmean(served[0], ("data", "model"))
-        return ns, loss, npairs, srv
-
-    ne, loss, npairs, srv = jax.jit(
-        shard_map(
-            step,
-            mesh=mesh,
-            in_specs=(P("model"), P("data", "model"), P("data", "model")),
-            out_specs=(P("model"), P(), P(), P()),
-            check_vma=False,
-        )
-    )(jnp.asarray(ei), jnp.asarray(rows), jnp.asarray(pools))
-    assert float(srv) == 1.0, float(srv)
-
-    delta = np.zeros_like(ei)
-    o_loss = 0.0
-    o_np = 0
-    for di in range(D):
-        for mi in range(M):
-            o_pi, o_po, wl, wnp = oracle.walk_banded_kernel_sequential(
-                ei, ei, rows[di, mi], pools[di, mi],
-                np.ones_like(rows[di, mi]), negw, lr, nw, paired=True,
-            )
-            delta += (o_pi - ei) + (o_po - ei)
-            o_loss += wl
-            o_np += wnp
-    exp = ei + delta
-    err = float(np.abs(np.asarray(ne) - exp).max()) / lr
-    scale = float(np.abs(delta / lr).max())
-    assert float(npairs) == o_np == rows.size, (float(npairs), o_np)
-    loss_rel = abs(float(loss) - o_loss) / max(abs(o_loss), 1e-9)
-    return err, scale, loss_rel
 
 
 def main(argv=None) -> int:

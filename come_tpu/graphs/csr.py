@@ -1,6 +1,6 @@
 """Immutable CSR graph container, host- and device-side.
 
-TPU-first replacement for the reference's dict-of-adjacency ``Graph`` class
+Device-first replacement for the reference's dict-of-adjacency ``Graph`` class
 (reference ``utils/graph_utils.py::Graph`` [R], SURVEY.md C2).  Instead of a
 Python ``defaultdict(list)``, the graph is two flat int32 arrays —
 ``indptr [V+1]`` and ``indices [E]`` — which is the only layout that supports

@@ -1,9 +1,9 @@
 """O3 — GMM community-closure loss and its SGD step.
 
-TPU-native replacement for the reference's numpy chunk loop (reference
+Replacement for the reference's numpy chunk loop (reference
 ``ADSCModel/community_embeddings.py::Community2Vec.train`` [R], SURVEY.md C8,
 §3.4): the per-node K x d^2 matvec loop becomes two einsums over the whole
-node batch, which XLA maps onto the MXU.
+node batch, which XLA maps onto matmuls.
 
 With responsibilities pi and covariances held fixed (they are refit by the
 EM step between passes), the trained objective for node i is

@@ -1,11 +1,11 @@
 """Batched full-covariance GMM EM in XLA.
 
-TPU-native replacement for the reference's sklearn dependency (reference
+Replacement for the reference's sklearn dependency (reference
 ``ADSCModel/community_embeddings.py::Community2Vec.fit`` ->
 ``sklearn.mixture.GaussianMixture(K, 'full', reg_covar, n_init)`` [R],
 SURVEY.md C8, §3.4 hot loop #2): E and M steps are dense linear algebra
-(Cholesky log-pdf, responsibility-weighted moments) that XLA tiles straight
-onto the MXU, ``n_init`` restarts run *simultaneously* via ``vmap`` instead
+(Cholesky log-pdf, responsibility-weighted moments) that XLA maps straight
+onto matmuls, ``n_init`` restarts run *simultaneously* via ``vmap`` instead
 of sequentially, and the best restart is selected by final log-likelihood —
 no host round-trip anywhere.
 """
@@ -188,7 +188,7 @@ def gmm_em_fit_sharded(
     ``x_shard`` [Vl, d] is this shard's rows (aligned with the row-sharded
     embedding table); ``mask_shard`` [Vl] zeroes padded rows.  E-step is
     local; every M-step moment (nk, means, covariances) and the
-    log-likelihood are psum'd over the axis — the TPU-native replacement for
+    log-likelihood are psum'd over the axis — the sharded replacement for
     sklearn's single-host EM at any V.  Restarts run sequentially in a scan;
     the best by log-likelihood wins (same selection rule as the reference's
     ``n_init``).
@@ -196,7 +196,7 @@ def gmm_em_fit_sharded(
     ``data_axis`` (VERDICT r3 item 2): when given, the EM compute is ALSO
     partitioned over that axis — each of the D replicas of a row shard
     works a Vl/D chunk and moments psum over BOTH axes, so the fit divides
-    by the whole mesh (16x on a v5e-16) instead of by the model axis
+    by the whole mesh instead of by the model axis
     alone.  The final responsibilities still cover the full local shard
     (row-wise normalization is local), so the output contract is
     unchanged.

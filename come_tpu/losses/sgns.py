@@ -1,6 +1,6 @@
 """Skip-gram negative-sampling loss, shared by O1 (walk windows) and O2 (edges).
 
-TPU-native replacement for the Cython hot loop (reference
+Replacement for the Cython hot loop (reference
 ``utils/training_sdg_inner.pyx::train_o1/train_o2`` [R], SURVEY.md C1, §3.2):
 the loss over a masked batch of (center, context, K negatives) triples as a
 pure function, with hand-written gradients (cheaper and more fusible than

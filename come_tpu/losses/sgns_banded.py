@@ -1,24 +1,19 @@
-"""Walk-banded SGNS at XLA level — the large-V (HBM-resident-table) tier.
+"""Walk-banded SGNS at XLA level — the O1 banded tier.
 
-Same MXU formulation as the fused Pallas kernel (``ops/pallas_walk_sgns.py``):
-every context of a walk position is another position of the SAME walk, so a
+Every context of a walk position is another position of the SAME walk, so a
 block of walks gathers its rows ONCE and scores all its window pairs as
-banded batched matmuls.  Here the tables stay in HBM (XLA gather/scatter)
-instead of VMEM, which removes the kernel's V*d residency ceiling — this is
-the tier that carries Flickr-beyond graphs (synthetic-10m, V >= 500k) where
-neither the f32 (V <= ~98k @ d=128) nor the bf16-resident (V <= ~196k)
-fused-kernel tier fits.
+banded batched matmuls over tables in device memory (XLA gather/scatter),
+at any V (synthetic-10m, V >= 500k, included).
 
-Per walk block of Bc walks (the synchronous update unit, mirroring the
-kernel's walk-group):
+Per walk block of Bc walks (the synchronous update unit):
 
   gather   PHI[Bc,L,d] = node_emb[walks], CTX[Bc,L,d] = ctx_emb[walks]
            (2*Bc*L row gathers for ~Bc*L*(W+1) trained pairs — ~0.2 row
            ops per pair, vs 4 in the flat-pair path; the 10x row-traffic
            cut is why this beats the flat XLA path at any V)
   mask     M[Bc,L,L] from offsets + the reduced-window draw w ~ U{1..W}
-  scores   S_pos = PHI @ CTX^T per walk (banded entries used)      [MXU]
-           S_neg = PHI @ Cneg^T (shared pool, fresh rows per block) [MXU]
+  scores   S_pos = PHI @ CTX^T per walk (banded entries used)   [matmul]
+           S_neg = PHI @ Cneg^T (shared pool, fresh rows per block) [matmul]
   grads    three more batched matmuls; per-center weight n_t keeps the
            noise work per trained pair identical to per-pair counting
   scatter  duplicate-combining sort+segment-sum scatter-add (hub rows
@@ -26,10 +21,9 @@ kernel's walk-group):
            scatter collisions into a parallel sort+reduce)
 
 Replaces the reference's Cython hot loop (``utils/training_sdg_inner.pyx``
-[R], SURVEY.md C1/§3.2) at scales the VMEM-resident kernels cannot reach;
-semantics per block match the fused kernel (synchronous block update,
+[R], SURVEY.md C1/§3.2); semantics per block: synchronous block update,
 reduced-window U{1..W} marginal, shared-pool negatives with negative/KP
-weighting).
+weighting.
 """
 
 from __future__ import annotations
@@ -179,8 +173,7 @@ def banded_walk_sgns_step_packed(
     """One O1 macro step over a batch of walks, banded, PACKED tables in HBM.
 
     ``combo`` is [V, 2d]: node_emb in columns [:d], ctx_emb in [d:].  The
-    packing matters because XLA's TPU row gather/scatter is ROW-RATE bound,
-    not bandwidth bound (measured ~26ns/row at d=128 f32 — ~2% of HBM BW):
+    packing matters because the row gather/scatter is row-rate bound:
     phi and ctx are always fetched at the SAME indices, so one [V, 2d]
     gather moves both tables for the row cost of one, halving the dominant
     cost of this tier.  Callers pack once per epoch (two [V, d] copies),
@@ -198,9 +191,8 @@ def banded_walk_sgns_step_packed(
       window: W; reduced windows drawn w ~ U{1..W} per center when
         ``reduced_window`` (gensim's `random % window` marginal), else the
         full window trains (the numpy-oracle test config).
-      sorted_scatter: duplicate-combining sort+segment-sum scatter.  Off by
-        default: XLA's plain scatter-add measured ~1.5x faster at SBM-like
-        duplication; turn on for heavy-hub power-law batches.
+      sorted_scatter: duplicate-combining sort+segment-sum scatter (for
+        heavy-hub power-law batches); off by default.
 
     Returns (combo', loss, n_pairs).
     """
@@ -224,10 +216,9 @@ def banded_walk_sgns_step_packed(
     # pairs_per_step*k/KP stale unit-gradients per row — measured
     # exponentially divergent at synthetic-10m (~2100 units/row at
     # KP=2048 diverges by step ~850; ~1050 diverges by ~900; ~520 is
-    # stable through 2500 — docs/PERF.md round-5 stability note).  The
-    # [G, C, KP] form bounds per-application mass WITHOUT shrinking the
-    # positive pass's block matmuls (the 1024-walk block measured ~40%
-    # faster than the 256-walk one its pool mass alone would force).
+    # stable through 2500 steps).  The [G, C, KP] form bounds
+    # per-application mass WITHOUT shrinking the positive pass's block
+    # matmuls.
     pool_g = shared_negs.astype(jnp.int32)
     if pool_g.ndim == 1:
         pool_g = jnp.broadcast_to(pool_g, (G,) + pool_g.shape)

@@ -1,16 +1,16 @@
-"""Block SGNS with batch-shared negatives — the MXU formulation.
+"""Block SGNS with batch-shared negatives — the matmul formulation.
 
 The reference's inner loop scores each pair against its own k negatives with
-scalar ``sdot``s (SURVEY.md §3.2); a TPU wants that work on the MXU as
+scalar ``sdot``s (SURVEY.md §3.2); an accelerator wants that work as
 matmuls.  Sharing one pool of ``num_shared`` negatives across a micro-batch
 (the GraphVite trick — PAPERS.md: "GraphVite: CPU-GPU hybrid system", which
 shares negatives within a sample block — pattern reference only) makes the
 negative term a dense [B, d] x [d, K'] matmul and its gradients two more
 matmuls, while keeping the same unigram^0.75 marginal distribution:
 
-  scores  S = Phi_c  @ Cneg^T          [B, K']   (MXU)
-  d_Phi  += (sigma(S) * w) @ Cneg      [B, d]    (MXU)
-  d_Cneg  = (sigma(S) * w)^T @ Phi_c   [K', d]   (MXU, dense -> K' rows)
+  scores  S = Phi_c  @ Cneg^T          [B, K']   (matmul)
+  d_Phi  += (sigma(S) * w) @ Cneg      [B, d]    (matmul)
+  d_Cneg  = (sigma(S) * w)^T @ Phi_c   [K', d]   (matmul, dense -> K' rows)
 
 Per-pair work is normalized so one trained pair still means "1 positive +
 ``negative`` noise comparisons" in expectation: each of the K' shared

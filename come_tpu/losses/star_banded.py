@@ -1,13 +1,8 @@
-"""Star-SGNS at XLA level — the large-V (HBM-resident-table) O2 tier.
+"""Star-SGNS at XLA level — the O2 (edge pass) banded tier.
 
-Same fan-out formulation as the fused star kernel
-(``ops/pallas_star_sgns.py``): arcs grouped by source into hub/fan-out
-segments packed into 128-slot rows (``sampling/stars.py``), scored as
-block-diagonal batched matmuls with a metadata mask.  Here the tied
-table stays in HBM (XLA gather/scatter) instead of VMEM, which removes
-the kernel's V*d residency ceiling — this is the tier that carries the
-edge pass on synthetic-10m-class graphs (V >= 500k) where the fused
-star kernel's single-table VMEM budget (V <= ~196k @ d=128) doesn't fit.
+Arcs grouped by source into hub/fan-out segments packed into 128-slot rows
+(``sampling/stars.py``), scored as block-diagonal batched matmuls with a
+metadata mask over the tied table in device memory (XLA gather/scatter).
 The structural analog of the O1 banded tier (``losses/sgns_banded.py``)
 for the reference's first-order edge objective (SURVEY.md C7/§3.3).
 
@@ -16,7 +11,7 @@ Per block of Br layout rows (the synchronous update unit):
   gather   PHI[Br,R,d] = node_emb[slots]   — ONE gather per slot (tied)
   mask     M[Br,R,R] from per-slot metadata: same segment AND exactly
            one endpoint is the hub (both arc directions of every edge)
-  scores   S = PHI @ PHI^T per row (masked entries used)          [MXU]
+  scores   S = PHI @ PHI^T per row (masked entries used)       [matmul]
   grads    source side (G @ PHI) + context side (G^T @ PHI) land on the
            same tied rows; shared-pool negatives weighted by the slot's
            source-pair count n_t (hub: fan-out, neighbor: 1)
@@ -128,12 +123,15 @@ def star_banded_sgns_step(
       emb: [V, d] f32 tied node table (any V — this is the HBM tier).
       slots/meta: int32 [NR, R] star layout rows (pads meta==-2 are
         inert: zero mask, zero n_t, scatter adds exact zeros to row 0).
-      shared_negs: int32 [KP] pool ids shared by all blocks; pool rows
-        re-gathered fresh per block, gradient scattered per block.
+      shared_negs: int32 [KP] pool ids shared by all blocks, or [G, KP]
+        with a FRESH pool per block (G = ceil(NR / row_block)); pool rows
+        are re-gathered per block and their gradient scattered per block.
+        Every trained pair adds ~negative_weight of gradient to EVERY pool
+        row, so a pool's mass per block is the block's pair count times
+        negative_weight (``ComEConfig.banded_pool_mass`` bounds it).
       row_block: layout rows per synchronous block.
       sorted_scatter: duplicate-combining sort+segment-sum scatter (for
-        heavy-hub batches; plain scatter-add is faster at SBM-like
-        duplication — same trade-off as the O1 banded tier).
+        heavy-hub batches; off by default, as in the O1 banded tier).
 
     Returns (emb', loss, n_pairs).
     """
@@ -146,13 +144,19 @@ def star_banded_sgns_step(
         meta = jnp.pad(meta, ((0, pad), (0, 0)), constant_values=-2)
     slots_g = slots.reshape(G, Bc, R).astype(jnp.int32)
     meta_g = meta.reshape(G, Bc, R).astype(jnp.int32)
-    pool = shared_negs.astype(jnp.int32)
+    pool_g = shared_negs.astype(jnp.int32)
+    if pool_g.ndim == 1:
+        pool_g = jnp.broadcast_to(pool_g, (G,) + pool_g.shape)
+    elif pool_g.shape[0] != G:
+        raise ValueError(
+            f"per-block pools: got {pool_g.shape[0]} for {G} blocks"
+        )
     scatter = scatter_add_rows_sorted if sorted_scatter else scatter_add_rows
     lr = jnp.asarray(lr, jnp.float32)
 
     def block(carry, xs):
         e = carry
-        w, mt_ = xs  # [Bc, R] each
+        w, mt_, pool = xs  # [Bc, R], [Bc, R], [KP]
         flat = w.reshape(Bc * R)
         phi = jnp.take(e, flat, axis=0).reshape(Bc, R, -1)
         cneg = jnp.take(e, pool, axis=0)
@@ -163,5 +167,7 @@ def star_banded_sgns_step(
         e = scatter(e, pool, d_cneg * (-lr))
         return e, (loss, npairs)
 
-    emb, (losses, npairs) = jax.lax.scan(block, emb, (slots_g, meta_g))
+    emb, (losses, npairs) = jax.lax.scan(
+        block, emb, (slots_g, meta_g, pool_g)
+    )
     return emb, jnp.sum(losses), jnp.sum(npairs)

@@ -5,6 +5,8 @@ Usage:
 
 Loads a registered dataset, runs the full alternating ComE optimization, and
 prints per-iteration losses + NMI (and node-classification F1 at the end).
+:func:`run` is the same driver returning its results, for in-process
+callers (``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import time
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="TPU-native ComE training")
+    p = argparse.ArgumentParser(description="ComE training")
     p.add_argument("--dataset", default="karate")
     p.add_argument("--dim", type=int)
     p.add_argument("--num-communities", type=int)
@@ -32,9 +34,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--pretrain-epochs", type=int)
     p.add_argument("--batch-walks", type=int)
     p.add_argument("--batch-edges", type=int)
-    p.add_argument("--o2-mode", choices=["auto", "star", "paired", "xla"],
-                   help="O2 tier selection (default auto: star -> "
-                        "banded-star -> paired -> xla)")
+    p.add_argument("--o2-mode", choices=["auto", "star", "xla"],
+                   help="O2 tier selection (default auto: banded star "
+                        "when its collision envelope holds, else xla)")
     p.add_argument("--down-sample", type=float,
                    help="word2vec frequent-node subsampling threshold "
                         "(reference `sample`; 0 = off, the default)")
@@ -61,7 +63,17 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+def run(argv=None) -> dict:
+    """Parse ``argv``, train, evaluate; returns ``{"trainer", "history",
+    "f1"}`` (``f1`` is None without ``--eval-f1``)."""
     args = build_argparser().parse_args(argv)
+    from come_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.distributed:
         # multi-host: initialize BEFORE any backend touch so jax.devices()
@@ -103,6 +115,7 @@ def main(argv=None) -> int:
               f"o2_tier={trainer.o2_tier()}")
     else:
         trainer = ComETrainer(ds.graph, cfg)
+        print(f"o1_tier={trainer.o1_tier()} o2_tier={trainer.o2_tier()}")
     if args.resume:
         trainer.load_checkpoint(args.resume)  # restores host_key too
         print(f"resumed from {args.resume} "
@@ -120,6 +133,7 @@ def main(argv=None) -> int:
     print(f"trained in {dt:.1f}s")
     if history and "nmi" in history[-1]:
         print(f"final NMI: {history[-1]['nmi']:.4f}")
+    f1 = None
     if args.eval_f1 and ds.labels is not None:
         from come_tpu.evaluation import node_classification_f1
 
@@ -154,7 +168,7 @@ def main(argv=None) -> int:
                    path=out / "graph_communities.png",
                    title=f"{ds.name}: detected communities")
         print(f"plots -> {out}")
-    return 0
+    return {"trainer": trainer, "history": history, "f1": f1}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """ComE model state: embedding tables + community parameters as one pytree.
 
-TPU-native redesign of the reference's ``Model`` class (reference
+Redesign of the reference's ``Model`` class (reference
 ``ADSCModel/model.py`` [R], SURVEY.md C5).  Where the reference holds shared
 mutable numpy arrays that hogwild threads race on, this is an immutable
 pytree threaded through pure jitted train steps; "mutation" is functional
@@ -18,12 +18,21 @@ Shapes (V nodes, d dims, K communities):
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 
-@struct.dataclass
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree (every field a child),
+    with ``.replace(**changes)`` for functional updates."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    return jax.tree_util.register_dataclass(cls)
+
+
+@pytree_dataclass
 class ComEParams:
     node_emb: jnp.ndarray
     ctx_emb: jnp.ndarray

@@ -1,7 +1,7 @@
 """Native host-side components (C++ via ctypes).
 
 Exactly one native component exists in the reference (the Cython SGD loop,
-SURVEY.md C1) and its TPU replacement is the batched device path; the native
+SURVEY.md C1) and its replacement is the batched device path; the native
 component that *is* justified host-side (SURVEY.md §7 hard part 4) is the
 corpus feeder: multithreaded C++ walk generation for graphs kept in host
 memory, double-buffered against device training.

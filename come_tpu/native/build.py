@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 import threading
 from pathlib import Path
@@ -17,6 +18,10 @@ _tried = False
 
 def _build() -> bool:
     _SO.parent.mkdir(exist_ok=True)
+    # build under a per-process name and rename into place: concurrent
+    # first uses (test workers, processes of one launch) never see a
+    # half-written library
+    tmp = _SO.with_name(f".{_SO.name}.{os.getpid()}.tmp")
     cmd = [
         "g++",
         "-O3",
@@ -24,15 +29,17 @@ def _build() -> bool:
         "-shared",
         "-fPIC",
         "-o",
-        str(_SO),
+        str(tmp),
         str(_SRC),
         "-lpthread",
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
-        return True
     except (subprocess.CalledProcessError, FileNotFoundError):
+        tmp.unlink(missing_ok=True)
         return False
+    os.replace(tmp, _SO)
+    return True
 
 
 def load_native():

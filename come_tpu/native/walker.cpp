@@ -1,6 +1,6 @@
 // Host-side multithreaded random-walk / corpus feeder.
 //
-// TPU-native-framework analog of the reference's multiprocessing walk writer
+// Host-side analog of the reference's multiprocessing walk writer
 // (reference utils/graph_utils.py::write_walks_to_disk + _write_walks_to_disk
 // [R], SURVEY.md C3): where the reference forked a process pool that streamed
 // walk text files to disk, this C++ library generates walk batches directly

@@ -16,9 +16,7 @@ Two scatter strategies are provided; both are exact:
     (SURVEY.md §7 hard part 2); pre-combining turns serialized scatter
     collisions into a parallel sort+reduce.
 
-Pallas TPU kernels for the same contracts live in
-``come_tpu.ops.pallas_sgns``; everything here is the jit-friendly jnp
-reference implementation and the numpy-oracle test target.
+Everything here is jit-friendly jnp and the numpy-oracle test target.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ The reference is strictly single-process (SURVEY.md §2: no NCCL/MPI/Gloo —
 shared memory and walk files were its only "communication").  come_tpu runs
 multi-host the JAX way: one process per host, ``jax.distributed.initialize``,
 then a single global ('data','model') mesh spanning every chip; XLA
-collectives ride ICI within a slice and DCN across slices
+collectives ride the devices' interconnect within a host and the network
+across hosts
 (BASELINE.json:5).  Nothing else in the trainer changes — ShardedComETrainer
 shards global arrays, and each host only materializes its addressable
 shards.
@@ -15,8 +16,6 @@ Launch (one command per host):
         --coordinator 10.0.0.1:8476 --num-processes 4 --process-id $ID \
         --dataset synthetic-10m --model-axis 4
 
-On a Cloud TPU pod slice the coordinator/process args are inferred from the
-environment and may be omitted.
 """
 
 from __future__ import annotations

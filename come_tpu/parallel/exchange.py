@@ -4,7 +4,7 @@ The baseline exchange (``sharded.psum_gather``) is a masked local gather +
 psum: every device receives the full [B, d] block regardless of mesh size,
 so per-device traffic is ~2*B*d and each model shard duplicates the batch's
 compute.  This module is the scalable form BASELINE.json:5 calls for
-("boundary-row exchange all-to-all over ICI"):
+("boundary-row exchange all-to-all"):
 
   * the pair batch is ALSO sliced over 'model' (each of the D*M devices
     works B/(D*M) pairs — model shards stop duplicating compute),
@@ -171,16 +171,6 @@ def make_exchange_plans_batched(
     return RowExchangePlan(
         order=order, sowner=sowner, pos=pos, ok=ok, served=served,
         got=got, rows_per=rows_per, capacity=capacity, axis=axis,
-    )
-
-
-def shift_plans(plans: RowExchangePlan) -> RowExchangePlan:
-    """plans[k] -> plans[k+1] (last repeats): the per-step xs feeding the
-    double-buffered prefetch — body k gathers block k+1's rows while block
-    k computes.  The final step's prefetch re-gathers its own rows and is
-    discarded (cost 1/G of the exchanges; keeps the scan shape static)."""
-    return jax.tree.map(
-        lambda a: jnp.concatenate([a[1:], a[-1:]], axis=0), plans
     )
 
 

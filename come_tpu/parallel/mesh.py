@@ -1,10 +1,10 @@
 """Device mesh + sharding layout for ComE training.
 
 The reference has no distributed layer at all (SURVEY.md §2: hogwild threads
-+ shared memory are its only "backend"); this module is the TPU-native
++ shared memory are its only "backend"); this module is the new
 creation called for by BASELINE.json:5: edge/walk shards partitioned over a
 ``data`` mesh axis, the embedding tables row-sharded over a ``model`` axis,
-boundary rows exchanged with XLA collectives over ICI.
+boundary rows exchanged with XLA collectives.
 
 Layout summary (V nodes, d dims, K communities, D x M mesh):
   node_emb/ctx_emb [V, d]   -> P('model', None)   row-sharded

@@ -2,7 +2,7 @@
 
 This is the runtime the reference never had (SURVEY.md §2 parallelism table):
 hogwild shared-memory threads become a ``shard_map`` over a
-('data','model') mesh, with XLA collectives over ICI doing the row exchange
+('data','model') mesh, with XLA collectives doing the row exchange
 BASELINE.json:5 calls for.
 
 Per SGD micro-step on device (i_d, i_m):
@@ -50,7 +50,7 @@ from come_tpu.trainer.come import ComETrainer, TrainState, _decayed_lr
 
 def psum_gather(table_shard: jnp.ndarray, idx: jnp.ndarray, axis: str = "model"):
     """Gather global rows from a row-sharded table: masked local gather +
-    psum over the model axis (the ICI boundary-row exchange)."""
+    psum over the model axis (the boundary-row exchange)."""
     rows_per = table_shard.shape[0]
     my = jax.lax.axis_index(axis)
     local = idx - my * rows_per
@@ -141,7 +141,15 @@ class ShardedComETrainer(ComETrainer):
             inv_cov=lay.shard(p.inv_cov, specs.inv_cov),
             pi=lay.shard(p.pi, specs.pi),
         )
-        self.state = self.state.replace(params=p)
+        # the scalars too: left unplaced, they come back from the first
+        # epoch with the mesh's replicated sharding, and the second epoch
+        # would compile the whole program again
+        key_data = lay.shard(jax.random.key_data(self.state.key), P())
+        self.state = TrainState(
+            params=p,
+            key=jax.random.wrap_key_data(key_data),
+            words_seen=lay.shard(self.state.words_seen, P()),
+        )
 
     def _state_specs(self) -> TrainState:
         lay = self.layout
@@ -236,7 +244,7 @@ class ShardedComETrainer(ComETrainer):
     def _shared_micro_scan(
         self, node_emb, ctx_emb, c2, x2, m2, key, lr, tie_tables
     ):
-        """Shared-negative (MXU) micro-steps inside shard_map: pool rows are
+        """Shared-negative (matmul) micro-steps inside shard_map: pool rows are
         psum-gathered over 'model', scored as dense matmuls, and the pool
         gradient scatters back through the row owners like any update."""
         from come_tpu.losses.sgns_block import sgns_block_grads_from_rows
@@ -381,86 +389,19 @@ class ShardedComETrainer(ComETrainer):
         )  # no silent coverage caps: bucket-overflow skips are monitorable
         return node_emb, ctx_emb, loss, npair, served
 
-    def _overlap_on(self, banded: bool) -> bool:
-        """Resolve ``cfg.overlap_exchange`` ("auto" keys off the measured
-        A/B, VERDICT r3 item 9): on TPU the prefetch rides async ICI
-        collectives behind the kernel (structural win); on CPU-virtual
-        meshes the A/B showed a win for the fused-kernel tier and a small
-        regression for the banded tier, so auto disables it there."""
-        ov = self.cfg.overlap_exchange
-        if ov is True or ov is False:
-            return ov
-        if ov != "auto":  # 'off'/'never'/... must not silently enable
-            raise ValueError(
-                f"overlap_exchange must be True, False or 'auto'; got "
-                f"{ov!r}"
-            )
-        if jax.default_backend() == "tpu":
-            return True
-        return not banded
-
-    def _rowsharded_walk_shapes(self, b_local: int | None = None):
-        """Static per-worker shapes for the row-sharded walk-kernel tier:
-        (walks per worker, groups, negative pools)."""
-        from come_tpu.ops.pallas_walk_sgns import NWL
-
+    def _banded_walks_per_worker(self, b_local: int | None = None) -> int:
+        """Walks each of the D*M workers trains per macro step (the
+        row-sharded tier also slices each data shard's walks over
+        'model')."""
         cfg = self.cfg
         if b_local is None:
             n_starts = len(self.walk_starts) * cfg.walks_per_node
             b_global = max(1, min(cfg.batch_walks, n_starts))
             b_local = max(1, b_global // self.layout.data_size)
-        b_w = max(1, b_local // self.layout.model_size)
-        n_groups = -(-b_w // (NWL // 128))
-        n_pools = -(-n_groups // cfg.walk_pool_refresh)
-        return b_w, n_groups, n_pools
-
-    def _use_walk_kernel(self, b_local: int | None = None) -> bool:
-        """Walk-banded fused kernel under the mesh.
-
-        model=1 (data-parallel tier): the full table stays VMEM-resident
-        per chip; each data shard runs the kernel on its walk shard and the
-        parameter deltas are psum'd over ICI — sum-of-deltas is the
-        synchronous analog of D hogwild workers sharing one table.
-
-        model>1 (row-sharded tier, parallel/walk_exchange.py): tables live
-        as HBM row shards with NO VMEM residency cap on V; each of the D*M
-        workers gathers its macro step's unique rows over ICI into a
-        compact VMEM table, runs the unchanged kernel, and routes delta
-        rows back to their owners.  Requires the a2a exchange (the id
-        interleave keeps owner buckets balanced).
-
-        The collision envelope widens by the worker count: all shards'
-        groups land on the table within one synchronous step."""
-        cfg = self.cfg
-        workers = self.layout.data_size * self.layout.model_size
-        if self.layout.model_size != 1:
-            if self.row_exchange != "a2a":
-                return False
-            if not self._walk_kernel_cfg_ok():
-                return False
-            # compact-table VMEM gate: the worker's kernel tables are
-            # [U, d] f32 with U = walks*L + pools*KP — unbounded by V but
-            # not by config; cap at the kernel's ~48MB-per-table budget
-            b_w, _, n_pools = self._rowsharded_walk_shapes(b_local)
-            u = b_w * cfg.walk_length + n_pools * cfg.shared_negatives
-            if u * cfg.dim * 4 > 48 * 1024 * 1024:
-                return False
-        else:
-            # bf16-resident tables are supported under the dp mesh too:
-            # the kernel runs on each shard's bf16 tables (SR writes), the
-            # delta psums in f32, and the sum applies with one
-            # deterministic bf16 round — replicas stay bit-identical
-            if not super()._use_walk_kernel():
-                return False
-        nw = 1024 // 128
-        pairs_per_group = nw * cfg.walk_length * (cfg.window + 1) / 2
-        collisions = (
-            2.0 * pairs_per_group * workers / max(self.graph.num_nodes, 1)
-        )
-        return collisions <= 16.0
+        return max(1, b_local // self.layout.model_size)
 
     def _use_banded_sharded(self, b_local: int | None = None) -> bool:
-        """Banded-XLA tier (HBM tables, no VMEM cap) under the mesh.
+        """Banded-XLA tier under the mesh.
 
         model=1: each data shard runs the packed banded step on its walk
         shard against its table replica; deltas psum over 'data' per macro
@@ -469,114 +410,22 @@ class ShardedComETrainer(ComETrainer):
         model>1: row-sharded packed tables + per-block bucketed a2a
         (walk_exchange.banded_walk_step_rowsharded) — the tier that carries
         BASELINE config 5 (multi-host x large-V).  Requires the a2a
-        exchange like the kernel tier."""
-        cfg = self.cfg
-        if cfg.banded == "never" or cfg.negative_mode != "shared":
-            return False
-        if cfg.down_sample > 0:
+        exchange.
+
+        The collision envelope widens by the worker count: all workers'
+        blocks land on the table within one synchronous step."""
+        if not self._banded_ok():
             return False
         if self.layout.model_size > 1 and self.row_exchange != "a2a":
             return False
-        if cfg.banded == "always":
-            return True
-        if jax.default_backend() != "tpu":
-            return False
+        return self._banded_block_sharded(b_local) > 0
+
+    def _banded_block_sharded(self, b_local: int | None = None) -> int:
+        """Walks per banded block of each worker (see _banded_block)."""
         workers = self.layout.data_size * self.layout.model_size
-        b_w, _, _ = self._rowsharded_walk_shapes(b_local)
-        bc = min(cfg.banded_walk_block, b_w)
-        pairs_per_block = bc * cfg.walk_length * (cfg.window + 1) / 2
-        collisions = (
-            2.0 * pairs_per_block * workers / max(self.graph.num_nodes, 1)
+        return self._banded_block(
+            self._banded_walks_per_worker(b_local), workers
         )
-        return collisions <= 16.0
-
-    def _o1_rowsharded_scan(
-        self, state: TrainState, walks_all: jnp.ndarray, B_global: int
-    ):
-        """Row-sharded fused-kernel epoch with hoisted + overlapped
-        exchanges (inside shard_map; walks_all [S, B_local, L] is this data
-        shard's corpus).
-
-        The walk batch is ALSO sliced over 'model': each of the D*M workers
-        trains its own B_local/M walks on a compact ICI-gathered table
-        (parallel/walk_exchange.py).  Exchange structure:
-
-          * every step's id all-to-all is batched into ONE collective
-            before the scan (ids are param-independent);
-          * with ``overlap_exchange`` the scan carries next step's rows,
-            gathered from pre-update tables while the current step's kernel
-            runs — gather latency hides behind compute (one-step-stale
-            reads; the hogwild envelope widened by one macro step).
-        """
-        from come_tpu.parallel.walk_exchange import (
-            fused_walk_step_prepped,
-            plan_walk_macro_steps,
-            prefetch_scan,
-        )
-
-        cfg = self.cfg
-        S, B_local, L = walks_all.shape
-        M = self.layout.model_size
-        mi = jax.lax.axis_index("model")
-        B_w, _, n_pools = self._rowsharded_walk_shapes(B_local)
-        wk_all = jax.lax.dynamic_slice_in_dim(
-            walks_all, mi * B_w, B_w, axis=1
-        )  # [S, B_w, L]
-        # per-worker RNG for the whole epoch: pools + kernel seeds upfront
-        dkey = jax.random.fold_in(state.key, jax.lax.axis_index("data"))
-        dkey = jax.random.fold_in(dkey, 7919 + mi)
-        state = state.replace(key=jax.random.fold_in(state.key, 7))
-        kpool, kseed = jax.random.split(dkey)
-        sneg_all = sample_alias(
-            self.accept, self.alias, kpool,
-            (S, n_pools, cfg.shared_negatives),
-        )
-        seeds = jax.random.randint(
-            kseed, (S,), 0, 2**31 - 1, dtype=jnp.int32
-        )
-        rows_per = self.v_pad // M
-        plans, rwalks, rneg, served = plan_walk_macro_steps(
-            wk_all, sneg_all, rows_per, cfg.a2a_capacity_slack
-        )
-        interp = cfg.pallas == "always" and jax.default_backend() != "tpu"
-        negw = cfg.negative / cfg.shared_negatives
-        step_kw = dict(
-            window=cfg.window, pool_refresh=cfg.walk_pool_refresh,
-            mxu_bf16=cfg.walk_kernel_bf16, interpret=interp,
-        )
-        p0 = state.params
-
-        def gather(carry, plan):
-            ne, ce, _words = carry
-            return plan.gather(ne), plan.gather(ce)
-
-        def step(carry, rows, plan, xs_k):
-            ne, ce, words = carry
-            rows_n, rows_c = rows
-            rw, rn, seed = xs_k
-            lr = _decayed_lr(words, self.total_words, cfg.lr, cfg.min_lr)
-            dn, dc, loss, npairs = fused_walk_step_prepped(
-                ne, ce, rows_n, rows_c, plan, rw, rn, lr, negw, seed,
-                **step_kw,
-            )
-            ne = ne + jax.lax.psum(dn, "data")
-            ce = ce + jax.lax.psum(dc, "data")
-            words = words + jnp.float32(B_global * L)
-            return (ne, ce, words), (loss, npairs)
-
-        (ne, ce, words), (losses, npairs) = prefetch_scan(
-            plans, (rwalks, rneg, seeds),
-            (p0.node_emb, p0.ctx_emb, state.words_seen),
-            gather, step, self._overlap_on(banded=False),
-        )
-
-        params = p0.replace(node_emb=ne, ctx_emb=ce)
-        state = TrainState(params=params, key=state.key, words_seen=words)
-        npair = jax.lax.psum(jnp.sum(npairs), ("data", "model"))
-        loss = jax.lax.psum(jnp.sum(losses), ("data", "model"))
-        loss = loss / jnp.maximum(npair, 1.0)
-        srv = jax.lax.pmean(jnp.mean(served), ("data", "model"))
-        return state, jnp.stack([loss, npair, srv])
 
     def _o1_epoch(self, state: TrainState, start_perm: jnp.ndarray):
         """shard_map body: start_perm [S, B] arrives sliced over 'data'."""
@@ -584,25 +433,15 @@ class ShardedComETrainer(ComETrainer):
         # this runs INSIDE shard_map: start_perm is already the local slice
         S, B_local = start_perm.shape
         L = cfg.walk_length
-        rowsharded = (
-            self._use_walk_kernel(B_local) and self.layout.model_size > 1
-        )
-        if S * B_local * L > self._WALK_STREAM_ELEMS and not rowsharded:
+        if S * B_local * L > self._WALK_STREAM_ELEMS:
             # large corpora STREAM per-step generation inside the SGD
-            # scan (no epoch corpus in HBM — see the base trainer's
-            # _WALK_STREAM_ELEMS note; a 1.6GB materialized corpus
-            # crashed the TPU worker runtime).  The rowsharded tier's
-            # exchange planner wants the materialized [S, B, L] form —
-            # its per-shard corpora are /D/M smaller, so the chunked
-            # path below covers it.
+            # scan (no epoch corpus in device memory — see the base
+            # trainer's _WALK_STREAM_ELEMS note)
             return self._o1_from_walks(
                 state, start_perm, gen_from_starts=True
             )
-        # whole-epoch walk generation, hoisted but CHUNKED: one wide scan
-        # costs ~one narrow scan (dispatch-latency bound), but its
-        # [1, S*B] remat copies carry a 128x tile-padding expansion that
-        # OOMs at multi-million-walk epochs (see the base trainer's
-        # _WALK_GEN_CHUNK note); decorrelated across data shards
+        # whole-epoch walk generation, hoisted but CHUNKED (see the base
+        # trainer's _WALK_GEN_CHUNK note); decorrelated across data shards
         kw_all = jax.random.fold_in(
             jax.random.fold_in(state.key, 11), jax.lax.axis_index("data")
         )
@@ -649,25 +488,7 @@ class ShardedComETrainer(ComETrainer):
         else:
             S, B_local, _L = walks_all.shape
         B_global = B_local * self.layout.data_size
-        use_walk_kernel = self._use_walk_kernel(B_local)
-        rowsharded = use_walk_kernel and self.layout.model_size > 1
-        use_banded = (not use_walk_kernel) and self._use_banded_sharded(
-            B_local
-        )
-        wdt = (
-            self._walk_table_dtype()
-            if use_walk_kernel and not rowsharded
-            else None
-        )
-        if wdt == jnp.bfloat16:
-            # bf16-resident tables for the epoch (SR writes in-kernel);
-            # f32 master restored at the epoch boundary (same scheme as
-            # the single-device trainer, plus the f32 delta psum below)
-            p = state.params
-            state = state.replace(params=p.replace(
-                node_emb=p.node_emb.astype(wdt),
-                ctx_emb=p.ctx_emb.astype(wdt),
-            ))
+        use_banded = self._use_banded_sharded(B_local)
         if use_banded:
             from come_tpu.losses.sgns_banded import pack_tables
 
@@ -680,9 +501,6 @@ class ShardedComETrainer(ComETrainer):
                 ctx_emb=jnp.zeros((0, 0), p.ctx_emb.dtype),
             ))
 
-        if rowsharded:
-            return self._o1_rowsharded_scan(state, walks_all, B_global)
-
         def body(carry, walks):
             params, key, words = carry
             # decorrelate RNG across data shards (negs are local)
@@ -690,8 +508,6 @@ class ShardedComETrainer(ComETrainer):
             key = jax.random.fold_in(key, 7)
             _, kw, kp, kn = jax.random.split(dkey, 4)
             lr = _decayed_lr(words, self.total_words, cfg.lr, cfg.min_lr)
-            interp = (cfg.pallas == "always"
-                      and jax.default_backend() != "tpu")
             served = jnp.float32(1.0)
             if gen_from_starts:  # streaming mode: xs rows are origins
                 walks = random_walks(
@@ -709,15 +525,13 @@ class ShardedComETrainer(ComETrainer):
                 wk = jax.lax.dynamic_slice_in_dim(walks, mi * B_w, B_w)
                 mkey = jax.random.fold_in(dkey, 7919 + mi)
                 kpool, kwin = jax.random.split(mkey)
+                # a fresh pool per block: the block is split to keep
+                # within the pool-stability bound (banded_pool_mass)
+                bc = self._banded_block_sharded(B_local)
+                bc //= self._pool_chunks(bc)
                 sneg = sample_alias(
                     self.accept, self.alias, kpool,
-                    (cfg.shared_negatives,),
-                )
-                # pool-stability slot bound per block application
-                # (banded_pool_slots; docs/PERF.md round-5 note)
-                bc = min(
-                    cfg.banded_walk_block,
-                    max(1, cfg.banded_pool_slots // cfg.walk_length),
+                    (-(-B_w // bc), cfg.shared_negatives),
                 )
                 ne, loss, npairs, served = banded_walk_step_rowsharded(
                     params.node_emb, wk, sneg, lr,
@@ -726,7 +540,6 @@ class ShardedComETrainer(ComETrainer):
                     walk_block=bc,
                     capacity_slack=cfg.a2a_capacity_slack,
                     mxu_bf16=cfg.walk_kernel_bf16,
-                    overlap=self._overlap_on(banded=True),
                 )
                 served = jax.lax.pmean(served, ("data", "model"))
                 ce = params.ctx_emb  # zero-size placeholder while packed
@@ -739,17 +552,13 @@ class ShardedComETrainer(ComETrainer):
                     jax.random.fold_in(dkey, 7919)
                 )
                 # full-size blocks with C fresh pool sub-chunks per
-                # block — the banded_pool_slots stability bound without
-                # shrinking the positive pass (docs/PERF.md round-5)
-                bc = min(cfg.banded_walk_block, B_local)
-                wpp = max(1, cfg.banded_pool_slots // cfg.walk_length)
-                C = -(-bc // wpp)
-                while bc % C:
-                    C += 1
+                # block — the banded_pool_mass stability bound without
+                # shrinking the positive pass
+                bc = self._banded_block_sharded(B_local)
                 n_blocks = -(-B_local // bc)
                 sneg = sample_alias(
                     self.accept, self.alias, kpool,
-                    (n_blocks, C, cfg.shared_negatives),
+                    (n_blocks, self._pool_chunks(bc), cfg.shared_negatives),
                 )
                 cmb0 = params.node_emb  # packed, replicated at model=1
                 cmb1, loss, npairs = banded_walk_sgns_step_packed(
@@ -765,47 +574,6 @@ class ShardedComETrainer(ComETrainer):
                 loss = jax.lax.psum(loss, "data")
                 npairs = jax.lax.psum(npairs, "data")
                 ce = params.ctx_emb  # zero-size placeholder while packed
-            elif use_walk_kernel:
-                from come_tpu.ops.pallas_walk_sgns import (
-                    NWL,
-                    fused_walk_sgns_step,
-                )
-
-                n_groups = -(-B_local // (NWL // 128))
-                n_pools = -(-n_groups // cfg.walk_pool_refresh)
-                sneg = sample_alias(
-                    self.accept, self.alias, kn,
-                    (n_pools, cfg.shared_negatives),
-                )
-                seed = jax.random.randint(
-                    kp, (), 0, 2**31 - 1, dtype=jnp.int32
-                )
-                ne0, ce0 = params.node_emb, params.ctx_emb
-                ne, ce, loss, npairs = fused_walk_sgns_step(
-                    ne0, ce0, walks, sneg, lr,
-                    cfg.negative / cfg.shared_negatives, seed,
-                    window=cfg.window, interpret=interp,
-                    reduced_window=not interp,
-                    mxu_bf16=cfg.walk_kernel_bf16,
-                    pool_refresh=cfg.walk_pool_refresh,
-                )
-                # sum-of-deltas over the data axis: every replica applies
-                # every shard's updates, replicas stay bit-identical
-                if wdt == jnp.bfloat16:
-                    # accumulate the cross-shard sum in f32 and round ONCE
-                    # (deterministically) back to the bf16-resident tables
-                    f32 = jnp.float32
-                    dn = jax.lax.psum(ne.astype(f32) - ne0.astype(f32),
-                                      "data")
-                    dc = jax.lax.psum(ce.astype(f32) - ce0.astype(f32),
-                                      "data")
-                    ne = (ne0.astype(f32) + dn).astype(wdt)
-                    ce = (ce0.astype(f32) + dc).astype(wdt)
-                else:
-                    ne = ne0 + jax.lax.psum(ne - ne0, "data")
-                    ce = ce0 + jax.lax.psum(ce - ce0, "data")
-                loss = jax.lax.psum(loss, "data")
-                npairs = jax.lax.psum(npairs, "data")
             else:
                 c, x, m = skipgram_pairs(walks, cfg.window, kp, self.keep)
                 negs = None
@@ -827,11 +595,6 @@ class ShardedComETrainer(ComETrainer):
         (params, key, words), (losses, npairs, srv) = jax.lax.scan(
             body, (state.params, state.key, state.words_seen), walks_all
         )
-        if wdt == jnp.bfloat16:
-            params = params.replace(
-                node_emb=params.node_emb.astype(jnp.float32),
-                ctx_emb=params.ctx_emb.astype(jnp.float32),
-            )
         if use_banded:
             from come_tpu.losses.sgns_banded import unpack_tables
 
@@ -844,177 +607,8 @@ class ShardedComETrainer(ComETrainer):
 
     # --------------------------------------------------- O2 under the mesh
 
-    def _o2_rows_global(self):
-        """(S, B_r): epoch steps x GLOBAL packed edge rows for the paired
-        kernel (64 edges interleaved per 128-slot row, same packing as
-        trainer/come.py::o2_epoch), with B_r a multiple of the worker
-        count so rows slice evenly over 'data' (and 'model' at M>1)."""
-        cfg = self.cfg
-        g = self.layout.data_size * self.layout.model_size
-        if not hasattr(self, "_und_u"):
-            u, v = self.graph.edges_undirected()
-            self._und_u = jnp.asarray(u, jnp.int32)
-            self._und_v = jnp.asarray(v, jnp.int32)
-        e2 = int(self._und_u.shape[0])
-        EPR = 64  # edges per 128-slot row
-        edges_step = max(EPR, min(cfg.batch_edges // 2, e2))
-        B_r = -(-edges_step // EPR)
-        # round UP to workers * NW rows: every worker gets whole 8-row
-        # kernel groups, so nothing wraps inside the kernel and the pair
-        # counter is exactly S * B_r * 128
-        from come_tpu.ops.pallas_walk_sgns import NWL
-
-        unit = g * (NWL // 128)
-        B_r = -(-B_r // unit) * unit
-        S = max(1, math.ceil(e2 / (B_r * EPR)))
-        return S, B_r
-
-    def _rowsharded_o2_shapes(self, b_r_local: int | None = None):
-        """Static per-worker shapes for the row-sharded paired-O2 tier:
-        (edge rows per worker, groups, negative pools)."""
-        from come_tpu.ops.pallas_walk_sgns import NWL
-
-        cfg = self.cfg
-        if b_r_local is None:
-            b_r_local = self._o2_rows_global()[1] // self.layout.data_size
-        b_w = max(1, b_r_local // self.layout.model_size)
-        n_groups = -(-b_w // (NWL // 128))
-        n_pools = -(-n_groups // cfg.walk_pool_refresh)
-        return b_w, n_groups, n_pools
-
-    def _use_walk_kernel_o2(self, b_r_local: int | None = None) -> bool:
-        """Paired (edge-mode) walk kernel for O2 under the mesh (VERDICT
-        r3 item 1 — the edge pass is co-equal with O1 in the paper's loop,
-        reference ``ADSCModel/node_embeddings.py::Node2Vec.train`` [R]).
-
-        model=1 (dp tier): f32 tables VMEM-resident per chip; each data
-        shard runs the paired kernel on its edge rows and the TIED delta
-        (new_in + new_out - 2*old) psums over ICI — the same sum-of-deltas
-        envelope as the dp O1 tier.
-
-        model>1 (row-sharded tier): tables stay HBM row shards; each of
-        the D*M workers gathers its step's unique endpoint rows over the
-        bucketed a2a into ONE compact table (tied: node rows only — half
-        the exchange traffic of O1) and routes dn+dc back to the owners.
-
-        The collision envelope widens by the worker count, as in
-        :meth:`_use_walk_kernel`."""
-        cfg = self.cfg
-        if cfg.o2_mode not in ("auto", "paired"):
-            return False  # forced modes ('star'/'xla') must be honored
-        if cfg.pallas == "never" or cfg.negative_mode != "shared":
-            return False
-        if cfg.pallas != "always" and jax.default_backend() != "tpu":
-            return False
-        from come_tpu.ops.pallas_walk_sgns import NWL
-
-        workers = self.layout.data_size * self.layout.model_size
-        if self.layout.model_size > 1:
-            if self.row_exchange != "a2a":
-                return False
-            # compact-table VMEM gate: tied tables mean ONE [U, d] f32
-            # table per worker, U = rows*128 slots + pools*KP
-            b_w, _, n_pools = self._rowsharded_o2_shapes(b_r_local)
-            u = b_w * 128 + n_pools * cfg.shared_negatives
-            if u * cfg.dim * 4 > 48 * 1024 * 1024:
-                return False
-        else:
-            budget = getattr(self, "_vmem_budget", 48 * 1024 * 1024)
-            if self.v_pad * cfg.dim * 4 > budget:
-                return False  # f32 VMEM tier only (no SR in paired mode)
-        collisions = 2.0 * NWL * workers / max(self.graph.num_nodes, 1)
-        return collisions <= 16.0
-
-    def _use_star_o2(self) -> bool:
-        """Star (fan-out grouped, tied) fused O2 tier under the mesh —
-        data-parallel only: each data shard runs the star kernel on its
-        slice of the packed star rows and the tied delta psums over ICI
-        (same envelope as the dp O1 tier).  model>1 keeps the paired
-        compact-table tier (the a2a exchange machinery is built around
-        the walk kernel's two-table staging).  Tied single-table VMEM
-        residency doubles the V ceiling of the paired dp tier."""
-        cfg = self.cfg
-        if cfg.o2_mode not in ("auto", "star"):
-            return False
-        if self.layout.model_size > 1:
-            return False
-        if cfg.pallas == "never" or cfg.negative_mode != "shared":
-            return False
-        if cfg.pallas != "always" and jax.default_backend() != "tpu":
-            return False
-        budget = getattr(self, "_vmem_budget", 48 * 1024 * 1024)
-        if self.v_pad * cfg.dim * 4 > 2 * budget:
-            return False  # ONE f32 table resident per chip
-        from come_tpu.ops.pallas_star_sgns import NWL
-
-        workers = self.layout.data_size
-        collisions = 2.0 * NWL * workers / max(self.graph.num_nodes, 1)
-        return collisions <= 16.0
-
-    def _o2_epoch_star(
-        self, state: TrainState, slots_all, meta_all, pairs_per_step
-    ):
-        """shard_map body for the star dp tier: slots/meta_all
-        [S, B_rl, 128] are this data shard's slices of the epoch's
-        row-shuffled star layout; pad rows (meta -2) self-mask, so shards
-        whose slice is partly padding contribute exact zero deltas."""
-        from come_tpu.ops.pallas_star_sgns import NWL, fused_star_sgns_step
-
-        cfg = self.cfg
-        S, B_rl, _ = slots_all.shape
-        interp = cfg.pallas == "always" and jax.default_backend() != "tpu"
-        negw = cfg.negative / cfg.shared_negatives
-        n_groups = -(-(B_rl * 128) // NWL)
-        n_pools = -(-n_groups // cfg.walk_pool_refresh)
-
-        def body(carry, sm):
-            params, key, words = carry
-            slots_s, meta_s = sm
-            dkey = jax.random.fold_in(key, jax.lax.axis_index("data"))
-            key = jax.random.fold_in(key, 9)
-            kn, kp = jax.random.split(dkey)
-            lr = _decayed_lr(words, self.total_words, cfg.lr, cfg.min_lr)
-            sneg = sample_alias(
-                self.accept, self.alias, kn,
-                (n_pools, cfg.shared_negatives),
-            )
-            seed = jax.random.randint(
-                kp, (), 0, 2**31 - 1, dtype=jnp.int32
-            )
-            ne0 = params.node_emb
-            ne, loss, npairs = fused_star_sgns_step(
-                ne0, slots_s.reshape(-1), meta_s.reshape(-1), sneg,
-                lr * cfg.alpha, negw, seed,
-                mxu_bf16=cfg.walk_kernel_bf16,
-                pool_refresh=cfg.walk_pool_refresh, interpret=interp,
-            )
-            # tied delta summed over the data shards (dp O1 envelope)
-            ne = ne0 + jax.lax.psum(ne - ne0, "data")
-            loss = jax.lax.psum(loss, "data")
-            npairs = jax.lax.psum(npairs, "data")
-            params = params.replace(node_emb=ne)
-            words = words + pairs_per_step
-            return (params, key, words), (loss, npairs)
-
-        (params, key, words), (losses, npairs) = jax.lax.scan(
-            body, (state.params, state.key, state.words_seen),
-            (slots_all, meta_all),
-        )
-        state = TrainState(params=params, key=key, words_seen=words)
-        npair = jnp.sum(npairs)
-        loss = jnp.sum(losses) / jnp.maximum(npair, 1.0)
-        return state, jnp.stack([loss, npair, jnp.float32(1.0)])
-
-    def o2_tier(self, b_r_local: int | None = None) -> str:
+    def o2_tier(self, b_local: int | None = None) -> str:
         """Which O2 path the current config/mesh selects (for logs/tests)."""
-        if self._use_star_o2():
-            return "star-o2-dp"
-        if self._use_walk_kernel_o2(b_r_local):
-            return (
-                "walk-kernel-paired-rowsharded"
-                if self.layout.model_size > 1
-                else "walk-kernel-paired-dp"
-            )
         if self.cfg.negative_mode == "shared":
             return (
                 "xla-a2a"
@@ -1023,148 +617,6 @@ class ShardedComETrainer(ComETrainer):
                 else "xla-psum"
             )
         return "xla-per-pair"
-
-    def _o2_rowsharded_scan(
-        self, state: TrainState, rows_all: jnp.ndarray, global_slots: int
-    ):
-        """Row-sharded paired-O2 epoch (inside shard_map; rows_all
-        [S, B_rl, 128] is this data shard's packed edge rows).
-
-        The edge rows are ALSO sliced over 'model'; each of the D*M
-        workers gathers its step's unique endpoint rows over ICI into a
-        compact TIED table (one gather — O2's tables are tied, so the
-        exchange moves half of O1's rows), runs the paired kernel, and
-        routes dn+dc back to the owners.  Exchange structure identical to
-        :meth:`_o1_rowsharded_scan`: id all-to-alls hoisted+batched before
-        the scan, row gathers double-buffered under compute when
-        ``overlap_exchange`` resolves on."""
-        from come_tpu.parallel.walk_exchange import (
-            fused_walk_step_prepped,
-            plan_walk_macro_steps,
-            prefetch_scan,
-        )
-
-        cfg = self.cfg
-        S, B_rl, Lp = rows_all.shape
-        M = self.layout.model_size
-        mi = jax.lax.axis_index("model")
-        B_w = B_rl // M
-        rows_w = jax.lax.dynamic_slice_in_dim(
-            rows_all, mi * B_w, B_w, axis=1
-        )  # [S, B_w, 128]
-        _, _, n_pools = self._rowsharded_o2_shapes(B_rl)
-        dkey = jax.random.fold_in(state.key, jax.lax.axis_index("data"))
-        dkey = jax.random.fold_in(dkey, 6007 + mi)
-        state = state.replace(key=jax.random.fold_in(state.key, 8))
-        kpool, kseed = jax.random.split(dkey)
-        sneg_all = sample_alias(
-            self.accept, self.alias, kpool,
-            (S, n_pools, cfg.shared_negatives),
-        )
-        seeds = jax.random.randint(
-            kseed, (S,), 0, 2**31 - 1, dtype=jnp.int32
-        )
-        rows_per = self.v_pad // M
-        plans, redges, rneg, served = plan_walk_macro_steps(
-            rows_w, sneg_all, rows_per, cfg.a2a_capacity_slack
-        )
-        interp = cfg.pallas == "always" and jax.default_backend() != "tpu"
-        negw = cfg.negative / cfg.shared_negatives
-        p0 = state.params
-
-        def gather(carry, plan):
-            ne, _words = carry
-            return plan.gather(ne)  # tied: ONE table, half O1's traffic
-
-        def step(carry, rows, plan, xs_k):
-            ne, words = carry
-            re_k, rn_k, seed = xs_k
-            lr = _decayed_lr(words, self.total_words, cfg.lr, cfg.min_lr)
-            # tied tables: the gathered node rows serve as BOTH kernel
-            # tables; dn + dc is the tied composition (new_in + new_out -
-            # 2*old routed through the compact slots)
-            dn, dc, loss, npairs = fused_walk_step_prepped(
-                ne, ne, rows, rows, plan, re_k, rn_k, lr * cfg.alpha,
-                negw, seed, window=1, pool_refresh=cfg.walk_pool_refresh,
-                mxu_bf16=cfg.walk_kernel_bf16, interpret=interp,
-                paired=True,
-            )
-            ne = ne + jax.lax.psum(dn + dc, "data")
-            words = words + jnp.float32(global_slots)
-            return (ne, words), (loss, npairs)
-
-        (ne, words), (losses, npairs) = prefetch_scan(
-            plans, (redges, rneg, seeds),
-            (p0.node_emb, state.words_seen),
-            gather, step, self._overlap_on(banded=False),
-        )
-
-        params = p0.replace(node_emb=ne)
-        state = TrainState(params=params, key=state.key, words_seen=words)
-        npair = jax.lax.psum(jnp.sum(npairs), ("data", "model"))
-        loss = jax.lax.psum(jnp.sum(losses), ("data", "model"))
-        loss = loss / jnp.maximum(npair, 1.0)
-        srv = jax.lax.pmean(jnp.mean(served), ("data", "model"))
-        return state, jnp.stack([loss, npair, srv])
-
-    def _o2_epoch_kernel(self, state: TrainState, rows_all: jnp.ndarray):
-        """shard_map body for the kernel O2 tiers: rows_all [S, B_rl, 128]
-        is this data shard's slice of the epoch's packed edge rows (64
-        edges interleaved per row, same packing as the single-chip paired
-        path, trainer/come.py::o2_epoch)."""
-        cfg = self.cfg
-        S, B_rl, Lp = rows_all.shape
-        D = self.layout.data_size
-        global_slots = B_rl * D * Lp  # 2 trained arcs per edge = slots
-        if self.layout.model_size > 1:
-            return self._o2_rowsharded_scan(state, rows_all, global_slots)
-
-        from come_tpu.ops.pallas_walk_sgns import (
-            NWL,
-            fused_walk_sgns_step,
-        )
-
-        interp = cfg.pallas == "always" and jax.default_backend() != "tpu"
-        negw = cfg.negative / cfg.shared_negatives
-        n_groups = -(-B_rl // (NWL // Lp))
-        n_pools = -(-n_groups // cfg.walk_pool_refresh)
-
-        def body(carry, rows):
-            params, key, words = carry
-            dkey = jax.random.fold_in(key, jax.lax.axis_index("data"))
-            key = jax.random.fold_in(key, 7)
-            kn, kp = jax.random.split(dkey)
-            lr = _decayed_lr(words, self.total_words, cfg.lr, cfg.min_lr)
-            sneg = sample_alias(
-                self.accept, self.alias, kn,
-                (n_pools, cfg.shared_negatives),
-            )
-            seed = jax.random.randint(
-                kp, (), 0, 2**31 - 1, dtype=jnp.int32
-            )
-            ne0 = params.node_emb
-            new_in, new_out, loss, npairs = fused_walk_sgns_step(
-                ne0, ne0, rows, sneg, lr * cfg.alpha, negw, seed,
-                window=1, interpret=interp, reduced_window=False,
-                mxu_bf16=cfg.walk_kernel_bf16,
-                pool_refresh=cfg.walk_pool_refresh, paired=True,
-            )
-            # tied composition (single-chip: new_in + new_out - old), with
-            # the cross-shard sum riding the same psum as the dp O1 tier
-            ne = ne0 + jax.lax.psum(new_in + new_out - 2.0 * ne0, "data")
-            loss = jax.lax.psum(loss, "data")
-            npairs = jax.lax.psum(npairs, "data")
-            params = params.replace(node_emb=ne)
-            words = words + jnp.float32(global_slots)
-            return (params, key, words), (loss, npairs)
-
-        (params, key, words), (losses, npairs) = jax.lax.scan(
-            body, (state.params, state.key, state.words_seen), rows_all
-        )
-        state = TrainState(params=params, key=key, words_seen=words)
-        npair = jnp.sum(npairs)
-        loss = jnp.sum(losses) / jnp.maximum(npair, 1.0)
-        return state, jnp.stack([loss, npair, jnp.float32(1.0)])
 
     def _o2_epoch(self, state: TrainState, src: jnp.ndarray, dst: jnp.ndarray):
         cfg = self.cfg
@@ -1242,29 +694,6 @@ class ShardedComETrainer(ComETrainer):
             ),
             donate_argnums=0,
         )
-        self._o2_star_jit = jax.jit(
-            shard_map(
-                self._o2_epoch_star,
-                mesh=mesh,
-                in_specs=(
-                    st, P(None, "data", None), P(None, "data", None), P()
-                ),
-                out_specs=(st, P()),
-                check_vma=False,
-            ),
-            donate_argnums=0,
-        )
-        self._o2_kernel_jit = jax.jit(
-            shard_map(
-                self._o2_epoch_kernel,
-                mesh=mesh,
-                in_specs=(st, P(None, "data", None)),
-                out_specs=(st, P()),
-                check_vma=False,
-            ),
-            donate_argnums=0,
-        )
-
         def o3_step(state):
             # pi/node_emb row-sharded identically, centroid/inv_cov
             # replicated: the community step is communication-free
@@ -1436,7 +865,7 @@ class ShardedComETrainer(ComETrainer):
             return self._o1_epoch_host()
         v = self.v_real
         D = lay.data_size
-        # walk batches divide over 'data'; the row-sharded walk-kernel tier
+        # walk batches divide over 'data'; the row-sharded banded tier
         # additionally slices each data shard's walks over 'model'
         g = D * lay.model_size
         # starts exclude isolated nodes (reference: degree-0 walks train
@@ -1465,12 +894,6 @@ class ShardedComETrainer(ComETrainer):
 
     def o1_tier(self, b_local: int | None = None) -> str:
         """Which O1 path the current config/mesh selects (for logs/tests)."""
-        if self._use_walk_kernel(b_local):
-            return (
-                "walk-kernel-rowsharded"
-                if self.layout.model_size > 1
-                else "walk-kernel-dp"
-            )
         if self._use_banded_sharded(b_local):
             return (
                 "banded-rowsharded"
@@ -1485,47 +908,6 @@ class ShardedComETrainer(ComETrainer):
                 else "xla-psum"
             )
         return "xla-per-pair"
-
-    def exchange_overlap_ab(self, epochs: int = 1, phase: str = "o1") -> dict:
-        """Exchange-vs-compute observability scalar (SURVEY §5 metrics row).
-
-        Times one warmed O1 (or O2, ``phase="o2"``) epoch with the
-        double-buffered row exchange ON vs OFF on fresh clone trainers
-        (this trainer's state is untouched) and returns
-        ``{"overlap_on_ms", "overlap_off_ms", "exchange_hidden_ms"}`` —
-        the last being how much collective time the software pipelining
-        hides behind the kernel.  Only meaningful on a model>1 mesh (the
-        row-sharded tiers); raises otherwise.
-        """
-        import time
-
-        if self.layout.model_size <= 1:
-            raise ValueError("no row exchange at model=1 (psum-only mesh)")
-        if phase not in ("o1", "o2"):
-            raise ValueError(f"phase must be o1|o2, got {phase!r}")
-
-        def timed(cfg):
-            tr = type(self)(self._orig_graph, cfg, self.layout.mesh)
-            epoch = tr.o1_epoch if phase == "o1" else tr.o2_epoch
-            sync = tr.o1_sync if phase == "o1" else tr.o2_sync
-            epoch()  # compile + warm
-            tr.stats_sync(False)
-            try:
-                t0 = time.perf_counter()
-                for _ in range(epochs):
-                    epoch()
-                sync()
-                return (time.perf_counter() - t0) / epochs * 1e3
-            finally:
-                tr.stats_sync(True)
-
-        on = timed(self.cfg.replace(overlap_exchange=True))
-        off = timed(self.cfg.replace(overlap_exchange=False))
-        return {
-            "overlap_on_ms": round(on, 2),
-            "overlap_off_ms": round(off, 2),
-            "exchange_hidden_ms": round(off - on, 2),
-        }
 
     def _log_o1_tier(self, b_local: int) -> None:
         self._log_tier("o1", self.o1_tier(b_local))
@@ -1555,48 +937,6 @@ class ShardedComETrainer(ComETrainer):
         cfg = self.cfg
         lay = self.layout
         D = lay.data_size
-        if self._use_star_o2():
-            rs, rm = self._star_layout()  # inherited cache (come.py)
-            NR = rs.shape[0]
-            unit = D * 8  # whole kernel groups per data shard per step
-            rps = max(unit, min(-(-cfg.batch_edges // 128), NR))
-            rps = -(-rps // unit) * unit
-            S = -(-NR // rps)
-            self.host_key, k = jax.random.split(self.host_key)
-            perm = jax.random.permutation(k, NR)
-            pad = S * rps - NR
-            ps = jnp.pad(rs[perm], ((0, pad), (0, 0)))
-            pm = jnp.pad(
-                rm[perm], ((0, pad), (0, 0)), constant_values=-2
-            )
-            slots_all = lay.shard(
-                ps.reshape(S, rps, 128), P(None, "data", None)
-            )
-            meta_all = lay.shard(
-                pm.reshape(S, rps, 128), P(None, "data", None)
-            )
-            self._log_tier("o2", "star-o2-dp")
-            self.state, stats = self._o2_star_jit(
-                self.state, slots_all, meta_all,
-                jnp.float32(self._star_pairs / S),
-            )
-            return self._finish_o2(stats)
-        if cfg.negative_mode == "shared":
-            S, B_r = self._o2_rows_global()
-            if self._use_walk_kernel_o2(B_r // D):
-                EPR = 64
-                e2 = int(self._und_u.shape[0])
-                self.host_key, k = jax.random.split(self.host_key)
-                perm = jax.random.permutation(k, e2)
-                uu = jnp.resize(self._und_u[perm], (S * B_r * EPR,))
-                vv = jnp.resize(self._und_v[perm], (S * B_r * EPR,))
-                rows = jnp.stack([uu, vv], axis=1).reshape(
-                    S, B_r, 2 * EPR
-                )
-                rows = lay.shard(rows, P(None, "data", None))
-                self._log_tier("o2", self.o2_tier(B_r // D))
-                self.state, stats = self._o2_kernel_jit(self.state, rows)
-                return self._finish_o2(stats)
         e = self.graph.num_arcs
         B = min(cfg.batch_edges, e)
         B = max(D, (B // D) * D)

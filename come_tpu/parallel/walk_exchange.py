@@ -1,46 +1,35 @@
-"""Row-sharded (model-parallel) tier of the walk-banded fused kernel.
+"""Row-sharded (model-parallel) banded walk tier.
 
-The fused kernel (ops/pallas_walk_sgns.py) needs its tables in VMEM, which
-caps V at ~196k rows per chip.  This tier removes the cap: the tables stay
-ROW-SHARDED over the 'model' axis (each chip owns V/M rows in HBM), and each
-macro step materializes only the rows that step actually touches:
+Tables stay ROW-SHARDED over the 'model' axis (each device owns V/M rows),
+and each banded block materializes only the rows it actually touches:
 
-  1. ids     = the step's walk slots + its negative pools (per worker)
+  1. ids     = the block's walk slots + its negative pool (per worker)
   2. uq      = sorted unique ids (static capacity = the id count — exact)
   3. gather  = bucketed all-to-all row exchange (parallel/exchange.py):
-               owners answer requests over ICI, ~3*U*d/M bytes per device
-  4. kernel  = the unchanged fused kernel over the COMPACT [U, d] tables
-               with walks/pools remapped to compact slots (searchsorted)
-  5. scatter = delta rows (new - old compact rows) ride the same buckets
-               back to their owners, then partial deltas psum over 'data'
+               owners answer requests, ~3*U*d/M bytes per device
+  4. compute = the banded SGNS math (losses/sgns_banded.py) over the
+               COMPACT [U, 2d] packed rows, walks/pools remapped to compact
+               slots (searchsorted)
+  5. scatter = delta rows ride the same buckets back to their owners, then
+               partial deltas psum over 'data' once per macro step
 
-Exchange/compute overlap (BASELINE.json:5 "exchanged all-to-all over ICI,
-OVERLAPPED with the SpMM-style aggregation and gradient scatter-add"):
+Ids are param-independent, so steps 1–2 and the id half of step 3 are
+HOISTED out of the training loop for every block at once
+(``plan_walk_macro_steps`` → ``make_exchange_plans_batched``: one batched
+all-to-all instead of one per block).  Each block's row gather reads the
+tables as the previous block left them (no stale prefetch: on four
+NVLink-joined H100s a one-block-ahead prefetch hid 0.9 ms of a 1.5 s
+epoch, see PERF.md).
 
-  * ids are param-independent, so steps 1–2 and the id half of step 3 are
-    HOISTED out of the training loop for every macro step / block at once
-    (``plan_walk_macro_steps`` → ``make_exchange_plans_batched``: one
-    batched all-to-all instead of one per step);
-  * with ``overlap=True`` the ROW gather for step k+1 is issued before
-    step k's update lands (double buffering through the scan carry), so
-    XLA's async collectives run it while step k's kernel computes.  The
-    prefetched rows are one step stale — the same staleness class as the
-    reference's hogwild reads (SURVEY.md §3.2), and the delta routed back
-    is relative to the worker's own gathered base, so sum-of-deltas
-    consistency is unaffected.
-
-Semantics: one macro step is synchronous across all D*M workers
-(sum-of-deltas, the same envelope as the data-parallel tier); within the
-step the kernel's group-sequential hogwild-style updates apply to the
-worker's private compact copy.  Bucket overflow (ids beyond an owner's
-static capacity) leaves those rows zero and drops their delta — equivalent
-to skipping the affected pairs for one step; with the trainer's id
-interleave (exchange.interleave_permutation) and the default 2x slack this
-~never fires, and the served fraction is returned for monitoring.
+Bucket overflow (ids beyond an owner's static capacity) leaves those rows
+zero and drops their delta — equivalent to skipping the affected pairs for
+one block; with the trainer's id interleave
+(exchange.interleave_permutation) and the default 2x slack this ~never
+fires, and the served fraction is returned for monitoring.
 
 Replaces: the reference's hogwild threads sharing one in-RAM table
-(SURVEY.md §3.2) — here the "table" is the union of the mesh's HBM shards
-and the "shared memory" is the ICI all-to-all.
+(SURVEY.md §3.2) — here the "table" is the union of the mesh's row shards
+and the "shared memory" is the all-to-all.
 """
 
 from __future__ import annotations
@@ -50,55 +39,7 @@ import math
 import jax
 import jax.numpy as jnp
 
-from come_tpu.parallel.exchange import (
-    RowExchangePlan,
-    make_exchange_plans_batched,
-    shift_plans,
-)
-
-
-def prefetch_scan(plans, xs, carry0, gather, step, overlap: bool):
-    """Scan macro steps with optional one-step row prefetch — THE shared
-    double-buffer pattern of every row-sharded tier (O1 kernel, O2 paired
-    kernel, banded blocks), so a fix to the pipelining applies everywhere.
-
-    ``plans``: batched RowExchangePlan (leading scan dim on every leaf).
-    ``xs``: tuple of per-step scan inputs.
-    ``gather(carry, plan) -> rows``: fetch the step's rows (any pytree)
-    from the CURRENT carry's tables.
-    ``step(carry, rows, plan, xs_k) -> (carry, out)``: apply one macro
-    step.
-
-    With ``overlap`` the NEXT step's rows are gathered BEFORE the current
-    step's update lands (double buffering through the scan carry): the
-    gather has no data dependency on the step's compute, so on TPU the
-    a2a rides the async collective engines under the kernel.  Prefetched
-    rows are one step stale — hogwild-class; callers' deltas are relative
-    to the gathered base, so sum-of-deltas consistency is unaffected.
-    """
-    if overlap:
-        plan0 = jax.tree.map(lambda a: a[0], plans)
-        rows0 = gather(carry0, plan0)
-
-        def body(c, x):
-            carry, rows = c
-            plan_cur, plan_next, xs_k = x
-            nrows = gather(carry, plan_next)
-            carry, out = step(carry, rows, plan_cur, xs_k)
-            return (carry, nrows), out
-
-        (carry, _), outs = jax.lax.scan(
-            body, (carry0, rows0), (plans, shift_plans(plans), xs)
-        )
-    else:
-
-        def body(carry, x):
-            plan, xs_k = x
-            rows = gather(carry, plan)
-            return step(carry, rows, plan, xs_k)
-
-        carry, outs = jax.lax.scan(body, carry0, (plans, xs))
-    return carry, outs
+from come_tpu.parallel.exchange import make_exchange_plans_batched
 
 
 def plan_walk_macro_steps(
@@ -148,106 +89,10 @@ def plan_walk_macro_steps(
     return plans, rwalks, rneg, served
 
 
-def fused_walk_step_prepped(
-    node_shard: jnp.ndarray,
-    ctx_shard: jnp.ndarray,
-    rows_n: jnp.ndarray,   # [U, d] gathered compact node rows (may be stale)
-    rows_c: jnp.ndarray,   # [U, d] gathered compact ctx rows
-    plan: RowExchangePlan,
-    rwalks: jnp.ndarray,   # [B_w, L] walks in COMPACT slots
-    rneg: jnp.ndarray,     # [n_pools, KP] pools in COMPACT slots
-    lr,
-    negative_weight,
-    seed,
-    *,
-    window: int,
-    pool_refresh: int = 1,
-    mxu_bf16: bool = False,
-    interpret: bool = False,
-    paired: bool = False,
-):
-    """Kernel + delta routing for one PREPPED macro step.
-
-    Returns (dn, dc, loss, n_pairs): per-worker partial deltas for the
-    owned row shards (NOT yet psum'd over 'data') and the worker-local
-    loss/pair count.  The delta is relative to the gathered base rows, so
-    prefetched (stale) rows stay sum-of-deltas consistent.
-
-    ``paired=True`` is the O2 (edge) mode: ``rwalks`` rows carry edges
-    interleaved [u0, v0, ...] in compact slots and the kernel trains
-    exactly (u->v)+(v->u) per edge (reduced windows are meaningless —
-    disabled).  For the TIED O2 tables pass the node shard/rows as BOTH
-    the node and ctx arguments; the caller applies ``dn + dc`` to the one
-    table (the same new_in + new_out - old composition as the single-chip
-    paired path, trainer/come.py::_o2_epoch_kernel).
-    """
-    from come_tpu.ops.pallas_walk_sgns import fused_walk_sgns_step
-
-    new_cn, new_cc, loss, npairs = fused_walk_sgns_step(
-        rows_n, rows_c, rwalks, rneg, lr, negative_weight, seed,
-        window=window, interpret=interpret,
-        reduced_window=not interpret and not paired,
-        mxu_bf16=mxu_bf16, pool_refresh=pool_refresh, paired=paired,
-    )
-    dn = plan.scatter_add(jnp.zeros_like(node_shard), new_cn - rows_n)
-    dc = plan.scatter_add(jnp.zeros_like(ctx_shard), new_cc - rows_c)
-    return dn, dc, loss, npairs
-
-
-def fused_walk_step_rowsharded(
-    node_shard: jnp.ndarray,   # [rows_per, d] this model shard's rows (f32)
-    ctx_shard: jnp.ndarray,    # [rows_per, d]
-    walks: jnp.ndarray,        # [B_w, L] this worker's walks (GLOBAL ids)
-    sneg: jnp.ndarray,         # [n_pools, KP] negative pools (GLOBAL ids)
-    lr,
-    negative_weight,
-    seed,
-    *,
-    window: int,
-    capacity_slack: float = 2.0,
-    pool_refresh: int = 1,
-    mxu_bf16: bool = False,
-    interpret: bool = False,
-    axis: str = "model",
-    data_axis: str = "data",
-):
-    """One SELF-CONTAINED O1 macro step on row-sharded tables (plan + gather
-    + kernel + scatter, no pipelining).  Call inside shard_map.  The
-    trainer's epoch loop uses the hoisted/overlapped form instead
-    (``plan_walk_macro_steps`` + ``fused_walk_step_prepped``); this entry
-    point remains the simple one-step API and the reference semantics for
-    tests.
-
-    Returns (node_shard', ctx_shard', loss, n_pairs, served_fraction):
-    ``loss`` and ``n_pairs`` are psum'd over BOTH mesh axes (matching the
-    delta treatment — callers divide loss by n_pairs directly), and
-    ``served_fraction`` is this worker's fraction of real unique rows that
-    fit their owner's bucket (fill entries excluded).  The table shards
-    come back identical across the data axis (deltas psum'd).
-    """
-    plans, rwalks, rneg, served = plan_walk_macro_steps(
-        walks[None], sneg[None], node_shard.shape[0], capacity_slack, axis
-    )
-    plan = jax.tree.map(lambda a: a[0], plans)
-    rows_n = plan.gather(node_shard)  # [U, d]; unserved/fill rows are 0
-    rows_c = plan.gather(ctx_shard)
-    dn, dc, loss, npairs = fused_walk_step_prepped(
-        node_shard, ctx_shard, rows_n, rows_c, plan,
-        rwalks[0], rneg[0], lr, negative_weight, seed,
-        window=window, pool_refresh=pool_refresh,
-        mxu_bf16=mxu_bf16, interpret=interpret,
-    )
-    dn = jax.lax.psum(dn, data_axis)
-    dc = jax.lax.psum(dc, data_axis)
-    loss = jax.lax.psum(loss, (data_axis, axis))
-    npairs = jax.lax.psum(npairs, (data_axis, axis))
-    return node_shard + dn, ctx_shard + dc, loss, npairs, served[0]
-
-
 def banded_walk_step_rowsharded(
     combo_shard: jnp.ndarray,  # [rows_per, 2d] packed node|ctx row shard
     walks: jnp.ndarray,        # [B_w, L] this worker's walks (GLOBAL ids)
-    sneg: jnp.ndarray,         # [KP] negative pool (GLOBAL ids)
+    sneg: jnp.ndarray,         # [KP] or [G, KP] pools (GLOBAL ids)
     lr,
     negative_weight,
     key: jax.Array,
@@ -257,23 +102,23 @@ def banded_walk_step_rowsharded(
     capacity_slack: float = 2.0,
     mxu_bf16: bool = True,
     reduced_window: bool = True,
-    overlap: bool = True,
     axis: str = "model",
     data_axis: str = "data",
 ):
     """One O1 macro step of the banded-XLA tier on row-sharded PACKED tables.
 
-    This is the large-V form of :func:`fused_walk_step_rowsharded`: same
-    bucketed-a2a row exchange, but the SGNS math is the XLA banded
-    formulation (losses/sgns_banded.py) over compact [U, 2d] row sets, so
-    there is NO VMEM residency constraint at all — the only per-step
-    footprint is the block's own rows.  This is the tier that carries
-    BASELINE config 5 (synthetic-10m, V >= 500k) under the mesh.
+    Bucketed-a2a row exchange around the XLA banded formulation
+    (losses/sgns_banded.py) over compact [U, 2d] row sets: the only
+    per-step footprint beyond the shards is the block's own rows.  This is
+    the tier that carries BASELINE config 5 (synthetic-10m, V >= 500k)
+    under the mesh.  Call inside shard_map.
 
-    Blocks of ``walk_block`` walks run sequentially; every block's id
-    exchange is hoisted and batched before the loop, and with
-    ``overlap=True`` block k+1's rows are gathered (one block stale) while
-    block k computes — see the module docstring.  Each block accumulates
+    Blocks of ``walk_block`` walks run sequentially, each against its own
+    row of ``sneg`` when it is [G, KP] (a fresh pool per block: a pool
+    shared by all G blocks takes all their gradient mass, see
+    ``ComEConfig.banded_pool_mass``); every block's id
+    exchange is hoisted and batched before the loop (see the module
+    docstring).  Each block accumulates
     its delta LOCALLY (gathers read shard + own accumulated delta, the
     per-worker hogwild envelope); the accumulated delta psums over 'data'
     ONCE per macro step so the full-shard collective amortizes over all
@@ -299,13 +144,18 @@ def banded_walk_step_rowsharded(
         )
     else:
         wrows = jnp.full((G, Bc, L), window, jnp.int32)
-    pool = sneg.reshape(-1).astype(jnp.int32)
-    KP = pool.shape[0]
+    pool_g = sneg.astype(jnp.int32)
+    if pool_g.ndim == 1:
+        pool_g = jnp.broadcast_to(pool_g, (G,) + pool_g.shape)
+    elif pool_g.shape[0] != G:
+        raise ValueError(
+            f"per-block pools: got {pool_g.shape[0]} for {G} blocks"
+        )
+    KP = pool_g.shape[1]
     lr = jnp.asarray(lr, jnp.float32)
     U = Bc * L + KP
 
     # hoisted id exchange for every block at once
-    pool_g = jnp.broadcast_to(pool, (G, KP))
     plans, rw, rp, served_g = plan_walk_macro_steps(
         walks_g, pool_g, rows_per, capacity_slack, axis
     )
@@ -335,19 +185,17 @@ def banded_walk_step_rowsharded(
     delta0 = jnp.zeros_like(combo_shard)
     rw_b = rw.reshape(G, Bc, L)
 
-    def gather(delta, plan):
+    def block(delta, xs_k):
+        plan, rw_k, rp_k, wr = xs_k
         # blocks accumulate their delta LOCALLY: gathers read shard + own
         # accumulated delta (the per-worker hogwild envelope)
-        return plan.gather(combo_shard + delta)
-
-    def block(delta, rows, plan, xs_k):
-        rw_k, rp_k, wr = xs_k
+        rows = plan.gather(combo_shard + delta)
         upd, loss, npairs = compute(rows, rw_k, rp_k, wr)
         delta = plan.scatter_add(delta, upd * (-lr))
         return delta, (loss, npairs)
 
-    delta, (losses, npairs) = prefetch_scan(
-        plans, (rw_b, rp, wrows), delta0, gather, block, overlap
+    delta, (losses, npairs) = jax.lax.scan(
+        block, delta0, (plans, rw_b, rp, wrows)
     )
 
     combo = combo_shard + jax.lax.psum(delta, data_axis)

@@ -1,9 +1,9 @@
 """On-device negative sampling via Walker's alias method.
 
-TPU-native replacement for the reference's unigram^0.75 negative-sampling
+Replacement for the reference's unigram^0.75 negative-sampling
 *table* (reference ``ADSCModel/model.py::make_table`` [R], SURVEY.md C5).
 gensim-lineage code materializes an O(10^8)-entry int table and indexes it
-with ``random % table_size``; on TPU we build O(V) alias arrays once on the
+with ``random % table_size``; here we build O(V) alias arrays once on the
 host and draw exact samples with two gathers + one select per draw — same
 distribution, 1000x less memory, fully vectorized.
 """

@@ -3,35 +3,33 @@
 The reference's O2 learner streams the edge list and trains each edge in
 both directions with the per-pair Cython kernel (reference
 ``ADSCModel/node_embeddings.py::Node2Vec.train`` [R], SURVEY.md C7/§3.3).
-The TPU paired tier reproduced that shape 1:1 — two staged slots per edge,
-one trained pair per slot — which makes its per-group economics 5-6x worse
-than O1's walk-banded tier (staging row-ops dominate group time, and
-paired groups train ~1k pairs where walk groups train ~5.7k).
+Reproducing that shape 1:1 — two gathered slots per edge, one trained pair
+per slot — makes the edge pass row-op bound.
 
 This module builds the layout that breaks that ceiling: arcs are grouped
 by SOURCE into *segments* (a hub node followed by its fan-out neighbors),
-segments are packed back-to-back into 128-slot rows, and the fused kernel
-(``ops/pallas_star_sgns.py``) trains every (hub <-> neighbor) pair of a
-segment from one staging of the segment's rows.  A segment of fan-out f
+segments are packed back-to-back into 128-slot rows, and the banded star
+step (``losses/star_banded.py``) trains every (hub <-> neighbor) pair of a
+segment from one gather of the segment's rows.  A segment of fan-out f
 occupies f+1 slots and trains 2f pairs, so pairs/slot approaches 2 —
-double the paired tier — while tied-table staging (O2 reads and writes
-only ``node_embedding``, SURVEY.md C7) halves the row-ops per slot.
+double the one-pair-per-slot layout — while the tied table (O2 reads and
+writes only ``node_embedding``, SURVEY.md C7) halves the row-ops per slot.
 
 Layout invariants (asserted by tests/test_stars.py):
   * every undirected edge appears exactly ONCE, as a neighbor slot in a
-    segment hubbed by one of its endpoints (the kernel trains u->v and
+    segment hubbed by one of its endpoints (the step trains u->v and
     v->u from that single slot);
   * segments never span 128-slot row boundaries (a segment that would
-    cross is split, repeating the hub — the kernel's mask is built from
+    cross is split, repeating the hub — the step's mask is built from
     per-slot segment ids and only pairs slots within one row);
-  * pad slots carry meta == -2 and node 0, and self-mask in the kernel.
+  * pad slots carry meta == -2 and node 0, and self-mask in the step.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-ROW = 128  # slots per packed row == the kernel's walk-block width
+ROW = 128  # slots per packed row == the star step's block width
 
 PAD_META = -2  # seg -1 / hub 0 under the meta = seg*2 + is_hub encoding
 
@@ -48,17 +46,15 @@ def build_star_layout(
     Args:
       u, v: int arrays [E], one entry per undirected edge.
       num_nodes: V (for degree-based orientation).
-      row_slots: slots per row (the kernel's block width; 128).
+      row_slots: slots per row (the star step's block width; 128).
 
     Returns (slots, meta), both int32 of equal length T (a multiple of
     ``row_slots``):
       slots[t]: node id staged at slot t (0 at pads)
       meta[t]:  seg_id * 2 + is_hub; PAD_META at pads.
 
-    Segment ids are LOCAL TO THEIR ROW (0..row_slots/2-1): the kernel
-    only compares meta within one row (segments never span rows), and
-    small ids keep meta f32-exact for the in-kernel lane->sublane
-    transpose of the metadata vector.
+    Segment ids are LOCAL TO THEIR ROW (0..row_slots/2-1): the star step
+    only compares meta within one row (segments never span rows).
 
     Each edge is assigned to its HIGHER-degree endpoint as hub (ties to
     the smaller id) — fewer, fatter segments means fewer hub slots and
@@ -67,14 +63,11 @@ def build_star_layout(
     ``max_fanout`` caps a segment's neighbor count (splitting repeats the
     hub).  It bounds the largest synchronously-applied per-row update (a
     hub's positive gradients and fan-out-scaled negative weight apply
-    from group-start state with no sequential sigmoid feedback), and the
+    from block-start state with no sequential sigmoid feedback), and the
     per-epoch row shuffle then scatters a big hub's split segments
-    across groups like the arc-permuted paired tier does.  Measured A/B
-    on the BlogCatalog config (scripts/probe_star_stability.py): capped
-    and uncapped are quality-equivalent (NMI 0.954 vs 0.959, same
-    embedding scale) — the cap is kept as a nearly-free precaution
-    (slot efficiency 2f/(f+1) is already 1.94 at f=32) for power-law
-    graphs whose hubs dwarf BlogCatalog's.
+    across blocks.  The cap is a nearly-free precaution (slot efficiency
+    2f/(f+1) is already 1.94 at f=32) for power-law graphs whose hubs
+    dwarf BlogCatalog's.
     """
     u = np.asarray(u, np.int64)
     v = np.asarray(v, np.int64)

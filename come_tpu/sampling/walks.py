@@ -1,6 +1,6 @@
 """Fused on-device random-walk generation.
 
-TPU-native replacement for the reference's walk-corpus machinery
+Replacement for the reference's walk-corpus machinery
 (``utils/graph_utils.py::random_walk / build_deepwalk_corpus /
 write_walks_to_disk / combine_files_iter`` [R], SURVEY.md C3): instead of a
 ``multiprocessing.Pool`` streaming walk text files to disk, a batch of walks
@@ -42,9 +42,8 @@ def random_walks(
     """
     start_nodes = start_nodes.astype(jnp.int32)
     B = start_nodes.shape[0]
-    # ALL the epoch's randomness in one vectorized threefry call — the
-    # per-step split+uniform used to dominate the walker (docs/PERF.md
-    # walker decomposition: deg-gather+RNG was ~2/3 of the step cost)
+    # ALL the epoch's randomness in one vectorized threefry call instead
+    # of a split+uniform per step
     ubits = jax.random.bits(key, (length - 1, B), jnp.uint32)
     if restart_prob > 0.0:
         rbits = jax.random.bits(

@@ -1,6 +1,6 @@
 """Vectorized skip-gram window-pair extraction.
 
-TPU-native replacement for the reference's per-sentence Python/Cython window
+Replacement for the reference's per-sentence Python/Cython window
 loop (reference ``utils/training_sdg_inner.pyx`` center/context iteration
 [R], SURVEY.md C1/§3.2).  Walks ``[B, L]`` become dense pair tensors
 ``centers/contexts/mask [B, L, 2W]`` with static shapes: invalid pairs are

@@ -1,14 +1,14 @@
 """Assemble EVAL_rNN.json from eval_sweep result files.
 
 Usage:
-  python scripts/build_eval_artifact.py --out EVAL_r05.json \
+  python scripts/build_eval_artifact.py --out EVAL_rNN.json \
       --inputs /tmp/eval_small.json /tmp/eval_10m.json /tmp/eval_mesh.json
 
 The artifact is the committed quality-regression baseline (VERDICT r4
 item 4): NMI + macro/micro-F1 (+ the deepwalk train-ratio sweep) for
 every registered dataset and a sharded-trainer (virtual mesh) run,
 captured on the hardware named in `platform`.  tests/test_eval_regression.py
-pins its structure and floors.
+holds the floors each dataset must meet.
 """
 
 from __future__ import annotations

@@ -1,29 +1,15 @@
-"""Quality-regression gate against the committed EVAL artifact.
+"""Quality floors: the NMI/macro-F1 bars each registered dataset must meet.
 
-EVAL_r05.json (VERDICT r4 item 4) is the in-repo NMI/F1 table captured
-on the real chip across every registered dataset (+ the heavy-tail
-dc-SBM variant and a virtual-mesh run).  This test (a) pins the
-artifact's structure and floors so a regression in a committed artifact
-is loud, and (b) re-measures the cheapest dataset end-to-end and
-asserts it lands within a tolerance band of the artifact (CPU-vs-TPU
-float paths and RNG streams differ, so the band is quality-class, not
-bitwise).
+``scripts/build_eval_artifact.py`` measures every dataset on the card and
+writes the EVAL artifact; these floors are the regression bars it is held
+to.  ``chip_smoke.py`` enforces the blogcatalog NMI floor on the GPU, and
+the slow test below re-measures the cheapest dataset end-to-end on the CPU.
 """
-
-import json
-from pathlib import Path
 
 import numpy as np
 import pytest
 
-ARTIFACT = Path(__file__).resolve().parent.parent / "EVAL_r05.json"
-
-# the artifact must cover every registered dataset plus the heavy-tail
-# variant; floors are the regression bars (generous vs the captured
-# values — a >X% regression trips them)
 EXPECTED_FLOORS = {
-    # captured (EVAL_r05): karate .837/.941, bc .954/1.0, wiki .972/.999,
-    # dblp .785/.977, flickr .976/1.0, heavy-tail .964/1.0, 10m .979/1.0
     "karate": {"nmi": 0.60, "macro_f1": 0.85},
     "blogcatalog-synthetic": {"nmi": 0.88, "macro_f1": 0.95},
     "wikipedia-synthetic": {"nmi": 0.90, "macro_f1": 0.95},
@@ -33,52 +19,21 @@ EXPECTED_FLOORS = {
     "synthetic-10m": {"nmi": 0.90, "macro_f1": 0.95},
 }
 
-
-def _rows():
-    """Single-chip rows by dataset (mesh rows are checked separately)."""
-    data = json.loads(ARTIFACT.read_text())
-    return {
-        r["dataset"]: r for r in data["results"] if not r.get("mesh")
-    }
-
-
-def test_artifact_exists_and_covers_datasets():
-    rows = _rows()
-    missing = set(EXPECTED_FLOORS) - set(rows)
-    assert not missing, f"EVAL artifact missing datasets: {missing}"
-    for name, floors in EXPECTED_FLOORS.items():
-        row = rows[name]
-        for metric, floor in floors.items():
-            val = row.get(metric)
-            assert val is not None and np.isfinite(val), (name, metric, row)
-            assert val >= floor, (
-                f"{name}.{metric}={val} below the committed floor {floor} "
-                "— quality regressed vs EVAL_r05.json"
-            )
-        # the deepwalk train-ratio protocol is present
-        assert "f1_by_train_ratio" in row, name
-
-
-def test_artifact_has_mesh_run():
-    data = json.loads(ARTIFACT.read_text())
-    mesh_rows = [r for r in data["results"] if r.get("mesh")]
-    assert mesh_rows, "EVAL artifact lacks a sharded-trainer (mesh) run"
-    for r in mesh_rows:
-        assert r["nmi"] >= 0.5, r
+# karate's first recorded NMI (0.837) less a quality-class band of 0.25:
+# float paths and RNG streams differ between machines, bits do not agree
+KARATE_NMI_BAR = 0.837 - 0.25
 
 
 @pytest.mark.slow
 def test_karate_remeasures_within_band():
-    """Re-run the cheapest dataset end-to-end (CPU) and compare against
-    the artifact's captured NMI: a quality-class band, since CPU float
-    paths and RNG streams differ from the capturing chip."""
+    """Re-run the cheapest dataset end-to-end (CPU) against its floors."""
     import sys
+    from pathlib import Path
 
-    sys.path.insert(0, str(ARTIFACT.parent / "scripts"))
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
     import eval_sweep
 
-    want = _rows()["karate"]["nmi"]
     got = eval_sweep.run_one("karate", fast=False, mesh_shape=None)
     assert np.isfinite(got["nmi"])
-    assert got["nmi"] >= want - 0.25, (got["nmi"], want)
+    assert got["nmi"] >= KARATE_NMI_BAR, got
     assert got["macro_f1"] >= 0.8, got

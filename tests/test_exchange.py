@@ -151,7 +151,6 @@ def test_sharded_a2a_trains_and_matches_quality():
         negative_mode="shared",
         shared_negatives=64,
         row_exchange="a2a",
-        pallas="never",
         banded="never",
         batch_walks=64,
         batch_edges=512,

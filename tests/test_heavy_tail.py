@@ -26,7 +26,6 @@ def _cfg(**kw):
         window=4,
         negative_mode="shared",
         shared_negatives=128,
-        pallas="always",
         batch_walks=32,
         batch_edges=1024,
         batch_pairs=4096,
@@ -55,13 +54,13 @@ def test_dc_sbm_is_heavy_tailed():
     assert np.bincount(labels).min() > 0
 
 
-def test_walk_kernel_trains_on_heavy_tail():
-    """Single-table fused walk kernel: hubs flood the walk stream and the
+def test_banded_trains_on_heavy_tail():
+    """Single-device banded tier: hubs flood the walk stream and the
     shared negative pool is drawn from a very skewed unigram^0.75 table —
     loss must still fall and communities must still separate."""
     g, labels = _graph()
     t = ComETrainer(g, _cfg())
-    assert t._use_walk_kernel()
+    assert t.o1_tier() == "banded"
     first = t.o1_epoch()
     losses = [t.o1_epoch() for _ in range(7)]
     assert np.isfinite(first) and losses[-1] < first
@@ -70,9 +69,9 @@ def test_walk_kernel_trains_on_heavy_tail():
 
 
 def test_rowsharded_a2a_heavy_tail_capacity():
-    """Row-sharded fused-kernel tier on the power-law graph: hub rows are
+    """Micro-batched a2a tier on the power-law graph: hub rows are
     requested by many workers at once, which is exactly what the bucketed
-    a2a's capacity envelope (cap = U/M * slack) must absorb.  With the
+    a2a's capacity envelope (cap = B/M * slack) must absorb.  With the
     default slack the exchange must serve EVERY pair (served == 1.0, no
     silent drops) and train to finite, decreasing loss."""
     import jax
@@ -81,9 +80,9 @@ def test_rowsharded_a2a_heavy_tail_capacity():
 
     g, labels = _graph()
     mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
-    t = ShardedComETrainer(g, _cfg(), mesh)
+    t = ShardedComETrainer(g, _cfg(banded="never"), mesh)
     assert ComEConfig().a2a_capacity_slack == 2.0  # default envelope
-    assert t.o1_tier() == "walk-kernel-rowsharded"
+    assert t.o1_tier() == "xla-a2a"
     first = t.o1_epoch()
     assert np.isfinite(first)
     assert t.last_o1_served == 1.0
@@ -102,7 +101,7 @@ def test_banded_rowsharded_heavy_tail():
     g, _ = _graph()
     mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
     t = ShardedComETrainer(
-        g, _cfg(pallas="never", banded="always", banded_walk_block=8), mesh
+        g, _cfg(banded="always", banded_walk_block=8), mesh
     )
     assert t.o1_tier() == "banded-rowsharded"
     first = t.o1_epoch()

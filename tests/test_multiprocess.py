@@ -1,5 +1,8 @@
 """True multi-host semantics via a 2-process CPU simulation.
 
+This is a CPU-only simulation: each process owns virtual CPU devices, and
+one process per GPU is what a real multi-card run uses.
+
 SURVEY.md §4 requires multi-process testing without a pod; VERDICT r1
 item 3 requires `jax.distributed.initialize` + per-process shard
 construction to be exercised end-to-end.  Each worker process owns 2
@@ -82,8 +85,7 @@ def _result_line(out: str) -> str:
 
 @pytest.mark.parametrize(
     "tier",
-    ["xla-a2a", "banded-rowsharded", "walk-kernel-rowsharded",
-     "host-corpus"],
+    ["xla-a2a", "banded-rowsharded", "host-corpus"],
 )
 def test_two_process_cpu_training(tier):
     procs, outs = _launch(tier)
@@ -128,7 +130,7 @@ def test_two_process_sharded_checkpoint_resume(tmp_path):
     cfg = ComEConfig(
         dim=32, num_communities=4, walk_length=16, walks_per_node=2,
         window=4, negative_mode="shared", shared_negatives=64,
-        pallas="never", banded="never", row_exchange="a2a",
+        banded="never", row_exchange="a2a",
         batch_walks=32, batch_edges=1024, batch_pairs=2048,
         outer_iters=0, pretrain_epochs=10, gmm_max_iter=15, reg_covar=1e-2,
     )
@@ -162,7 +164,7 @@ def test_elastic_restore_grow_direction(tmp_path):
     cfg = ComEConfig(
         dim=32, num_communities=4, walk_length=16, walks_per_node=2,
         window=4, negative_mode="shared", shared_negatives=64,
-        pallas="never", banded="never", row_exchange="a2a",
+        banded="never", row_exchange="a2a",
         batch_walks=32, batch_edges=1024, batch_pairs=2048,
         outer_iters=0, pretrain_epochs=10, gmm_max_iter=15, reg_covar=1e-2,
     )

@@ -110,7 +110,7 @@ def test_community_grad_matches_oracle(rng):
     g = community_grad(jnp.asarray(emb), jnp.asarray(pi),
                        jnp.asarray(centroid), jnp.asarray(inv_cov), beta)
     og = oracle.community_grads(emb, pi, centroid, inv_cov, beta)
-    # f32 einsum reassociation (MXU tiling) vs the oracle's f64 loop
+    # f32 einsum reassociation (blocked matmuls) vs the oracle's f64 loop
     np.testing.assert_allclose(np.asarray(g), og, rtol=1e-3, atol=5e-4)
 
     # batch (subset) mode

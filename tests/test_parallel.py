@@ -90,7 +90,7 @@ def test_sharded_karate_trains(karate, shape):
 
 
 def test_sharded_shared_negatives_mode(karate):
-    """MXU shared-negative path under the (data, model) mesh."""
+    """Shared-negative (matmul) path under the (data, model) mesh."""
     mesh = make_mesh(data=2, model=4)
     cfg = get_config("karate").replace(
         outer_iters=1, pretrain_epochs=2, negative_mode="shared",
@@ -264,30 +264,6 @@ def test_same_proc_count_mesh_change_refused_without_elastic(
     mesh2 = make_mesh(data=1, model=4, devices=jax.devices()[:4])
     with pytest.raises(ValueError, match="elastic"):
         load_checkpoint_sharded(tmp_path / "state", MeshLayout(mesh2))
-
-
-def test_exchange_overlap_ab_scalar(karate):
-    """exchange_overlap_ab returns the exchange-vs-compute scalars on a
-    model>1 mesh (SURVEY §5 collective-time observability) and leaves the
-    calling trainer's state untouched."""
-    mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
-    cfg = get_config("karate").replace(outer_iters=0, pretrain_epochs=0)
-    t = ShardedComETrainer(karate.graph, cfg, mesh)
-    before = np.asarray(t.state.params.node_emb)
-    ab = t.exchange_overlap_ab()
-    assert set(ab) == {"overlap_on_ms", "overlap_off_ms",
-                       "exchange_hidden_ms"}
-    assert ab["overlap_on_ms"] > 0 and ab["overlap_off_ms"] > 0
-    np.testing.assert_array_equal(before, np.asarray(t.state.params.node_emb))
-    # the O2 phase has its own A/B (the round-4 row-sharded O2 tier)
-    ab2 = t.exchange_overlap_ab(phase="o2")
-    assert ab2["overlap_on_ms"] > 0 and ab2["overlap_off_ms"] > 0
-    mesh1 = make_mesh(data=4, model=1, devices=jax.devices()[:4])
-    t1 = ShardedComETrainer(karate.graph, cfg, mesh1)
-    with pytest.raises(ValueError):
-        t1.exchange_overlap_ab()
-    with pytest.raises(ValueError):
-        t.exchange_overlap_ab(phase="o3")
 
 
 def test_train_logs_phase_ms(karate):

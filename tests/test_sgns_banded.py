@@ -26,9 +26,11 @@ def _oracle_block(emb_in, emb_out, walks, pool, wrow, negw):
     )
 
 
-@pytest.mark.parametrize("W", [1, 3])
-def test_banded_block_grads_match_oracle(rng, W):
-    V, d, B, L, KP = 30, 8, 3, 7, 4
+@pytest.mark.parametrize(
+    "W,d", [(1, 8), (3, 8), (3, 128)], ids=["1", "3", "3-d128"]
+)
+def test_banded_block_grads_match_oracle(rng, W, d):
+    V, B, L, KP = 30, 3, 7, 4
     emb_in = rng.normal(size=(V, d)).astype(np.float32) * 0.3
     emb_out = rng.normal(size=(V, d)).astype(np.float32) * 0.3
     walks = rng.integers(0, V, size=(B, L)).astype(np.int32)
@@ -128,7 +130,6 @@ def test_trainer_banded_path_trains():
         window=4,
         negative_mode="shared",
         shared_negatives=128,
-        pallas="never",
         banded="always",
         banded_walk_block=32,
         batch_walks=128,
@@ -140,7 +141,6 @@ def test_trainer_banded_path_trains():
         reg_covar=1e-2,
     )
     t = ComETrainer(g, cfg)
-    assert not t._use_walk_kernel()
     assert t._use_banded()
     first = t.o1_epoch()
     losses = [t.o1_epoch() for _ in range(7)]
@@ -200,3 +200,78 @@ def test_chunked_pools_match_composed_oracle(rng):
     np.testing.assert_allclose(float(loss), total_loss, rtol=1e-4)
     np.testing.assert_allclose(np.asarray(ni), e_in, rtol=1e-3, atol=3e-5)
     np.testing.assert_allclose(np.asarray(no), e_out, rtol=1e-3, atol=3e-5)
+
+
+@pytest.mark.parametrize("d,blocks,per_block_pools", [
+    (8, 2, True), (128, 4, True), (128, 3, False),
+])
+def test_step_matches_sequential_oracle(rng, d, blocks, per_block_pools):
+    """Multi-block step (blocks apply in order, each gathering the pool
+    rows fresh and applying its pool gradient last) vs the composed
+    sequential oracle — with a fresh pool per block or one shared set of
+    pool ids."""
+    from come_tpu.evaluation.oracle import walk_banded_sequential
+
+    V, L, Bc, KP, W = 60, 10, 4, 16, 3
+    ei = rng.normal(size=(V, d)).astype(np.float32) * (0.3 / np.sqrt(d / 8))
+    eo = rng.normal(size=(V, d)).astype(np.float32) * (0.3 / np.sqrt(d / 8))
+    walks = rng.integers(0, V, (blocks * Bc, L)).astype(np.int32)
+    shape = (blocks, KP) if per_block_pools else (KP,)
+    pools = rng.integers(0, V, shape).astype(np.int32)
+    lr, negw = 0.05, 5.0 / KP
+    ni, no, loss, npairs = banded_walk_sgns_step(
+        jnp.asarray(ei), jnp.asarray(eo), jnp.asarray(walks),
+        jnp.asarray(pools), lr, negw, jax.random.key(0), window=W,
+        walk_block=Bc, reduced_window=False, mxu_bf16=False,
+    )
+    o_i, o_o, o_loss, o_np = walk_banded_sequential(
+        ei, eo, walks, pools, np.full(walks.shape, W, np.int32), negw, lr,
+        Bc,
+    )
+    assert float(npairs) == o_np
+    np.testing.assert_allclose(float(loss), o_loss, rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(ni), o_i, rtol=1e-4, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(no), o_o, rtol=1e-4, atol=2e-5)
+
+
+def test_banded_bf16_close_to_f32(rng):
+    """bf16 matmuls (f32 accumulation, f32 tables) stay close to the f32
+    step at d=128, and the tables keep their f32 dtype."""
+    V, d, L, KP = 200, 128, 20, 64
+    ei = jnp.asarray(rng.normal(size=(V, d)).astype(np.float32) * 0.05)
+    eo = jnp.asarray(rng.normal(size=(V, d)).astype(np.float32) * 0.05)
+    walks = jnp.asarray(rng.integers(0, V, (16, L)), jnp.int32)
+    pool = jnp.asarray(rng.integers(0, V, KP), jnp.int32)
+    outs = [
+        banded_walk_sgns_step(
+            ei, eo, walks, pool, 0.025, 5.0 / KP, jax.random.key(0),
+            window=5, walk_block=8, mxu_bf16=bf16,
+        )
+        for bf16 in (False, True)
+    ]
+    (fi, fo, fl, fn), (bi, bo, bl, bn) = outs
+    assert bi.dtype == bo.dtype == jnp.float32
+    assert float(fn) == float(bn)
+    scale = float(jnp.max(jnp.abs(fi - ei)))
+    assert float(jnp.max(jnp.abs(bi - fi))) < 0.05 * scale
+    assert float(jnp.max(jnp.abs(bo - fo))) < 0.05 * float(
+        jnp.max(jnp.abs(fo - eo))
+    )
+    np.testing.assert_allclose(float(bl), float(fl), rtol=1e-2)
+
+
+@pytest.mark.parametrize("d,blocks", [(16, 1), (128, 1), (128, 3)])
+def test_rowsharded_step_matches_oracle(rng, d, blocks):
+    """The (2,2)-mesh row-sharded banded step (bucketed a2a exchange) vs
+    block oracles composed as the mesh applies them — one block, or
+    several blocks in order, each with its own fresh pool."""
+    from come_tpu.evaluation.parity import rowsharded_parity
+
+    V, L, KP, W, lr = 90, 12, 16, 3, 0.025
+    ei = (rng.normal(size=(V, d)) * 0.3 / np.sqrt(d / 16)).astype(np.float32)
+    eo = (rng.normal(size=(V, d)) * 0.3 / np.sqrt(d / 16)).astype(np.float32)
+    err, scale, loss_rel = rowsharded_parity(
+        ei, eo, rng, 4, L, KP, W, lr, 5.0 / KP, blocks=blocks
+    )
+    assert err < 5e-4 + 1e-3 * scale, (err, scale)
+    assert loss_rel < 1e-4

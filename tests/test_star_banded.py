@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from come_tpu.config import ComEConfig
 from come_tpu.graphs import sbm_graph
@@ -115,14 +116,13 @@ def test_trainer_selects_banded_star_and_trains():
     cfg = ComEConfig(
         dim=32, num_communities=4, walk_length=16, walks_per_node=2,
         window=4, negative_mode="shared", shared_negatives=128,
-        pallas="never", banded="always", batch_walks=32,
+        banded="always", batch_walks=32,
         batch_edges=4096, outer_iters=0,
         # non-zero LR-decay word budget (we only drive o2_epoch directly)
         pretrain_epochs=8,
     )
     t = ComETrainer(g, cfg)
-    assert not t._use_star_o2() and not t._use_walk_kernel_o2()
-    assert t._use_banded_star_o2()
+    assert t.o2_tier() == "banded-star"
     first = t.o2_epoch()
     e2 = len(g.edges_undirected()[0])
     assert t.last_o2_pairs == 2 * e2, (t.last_o2_pairs, e2)
@@ -138,3 +138,114 @@ def test_trainer_selects_banded_star_and_trains():
     edge_sim = float(np.mean(np.sum(norm[u] * norm[v], axis=1)))
     rand_sim = float(np.mean(np.sum(norm[ru] * norm[rv], axis=1)))
     assert edge_sim > rand_sim + 0.1, (edge_sim, rand_sim)
+
+
+@pytest.mark.parametrize("d,row_block", [(32, 2), (128, 3)])
+def test_star_banded_matches_sequential_oracle(rng, d, row_block):
+    """Multi-block star step vs the block-sequential oracle at d=128."""
+    from come_tpu.evaluation.oracle import star_banded_sequential
+
+    V, KP = 120, 16
+    emb = (rng.normal(size=(V, d)) * 0.1 / np.sqrt(d / 32)).astype(
+        np.float32
+    )
+    slots, meta = _layout_rows(rng, V, 900)
+    NR = slots.shape[0]
+    pad = -NR % row_block  # whole blocks; pad rows self-mask
+    slots = np.pad(slots, ((0, pad), (0, 0)))
+    meta = np.pad(meta, ((0, pad), (0, 0)), constant_values=PAD_META)
+    pool = rng.integers(0, V, KP).astype(np.int32)
+    lr, negw = 0.05, 5.0 / KP
+    ne, loss, npairs = star_banded_sgns_step(
+        jnp.asarray(emb), jnp.asarray(slots), jnp.asarray(meta),
+        jnp.asarray(pool), lr, negw, row_block=row_block, mxu_bf16=False,
+    )
+    o_e, o_loss, o_np = star_banded_sequential(
+        emb, slots, meta, pool, negw, lr, block_rows=row_block
+    )
+    assert float(npairs) == o_np == 1800.0
+    np.testing.assert_allclose(float(loss), o_loss, rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(ne), o_e, rtol=1e-3, atol=2e-5)
+
+
+def test_star_banded_bf16_close_to_f32(rng):
+    V, d, KP = 150, 128, 32
+    emb = jnp.asarray(rng.normal(size=(V, d)).astype(np.float32) * 0.05)
+    slots, meta = _layout_rows(rng, V, 600)
+    pool = jnp.asarray(rng.integers(0, V, KP), jnp.int32)
+    f, b = (
+        star_banded_sgns_step(
+            emb, jnp.asarray(slots), jnp.asarray(meta), pool, 0.025,
+            5.0 / KP, row_block=2, mxu_bf16=bf16,
+        )
+        for bf16 in (False, True)
+    )
+    assert b[0].dtype == jnp.float32
+    assert float(f[2]) == float(b[2])
+    scale = float(jnp.max(jnp.abs(f[0] - emb)))
+    assert float(jnp.max(jnp.abs(b[0] - f[0]))) < 0.05 * scale
+
+
+@pytest.mark.parametrize("d,row_block", [(32, 2), (128, 3)])
+def test_star_banded_fresh_pool_per_block(rng, d, row_block):
+    """[G, KP] pools: block g draws its negatives from pool g, as the
+    trainer's O2 epoch feeds it (one fresh pool per block)."""
+    from come_tpu.evaluation.oracle import star_banded_sequential
+
+    V, KP = 120, 16
+    emb = (rng.normal(size=(V, d)) * 0.1 / np.sqrt(d / 32)).astype(
+        np.float32
+    )
+    slots, meta = _layout_rows(rng, V, 900)
+    G = -(-slots.shape[0] // row_block)
+    pools = rng.integers(0, V, (G, KP)).astype(np.int32)
+    lr, negw = 0.05, 5.0 / KP
+    ne, loss, npairs = star_banded_sgns_step(
+        jnp.asarray(emb), jnp.asarray(slots), jnp.asarray(meta),
+        jnp.asarray(pools), lr, negw, row_block=row_block, mxu_bf16=False,
+    )
+    o_e, o_loss, o_np = star_banded_sequential(
+        emb, slots, meta, pools, negw, lr, block_rows=row_block
+    )
+    assert float(npairs) == o_np == 1800.0
+    np.testing.assert_allclose(float(loss), o_loss, rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(ne), o_e, rtol=1e-3, atol=2e-5)
+    # one shared pool is a different step
+    one, _, _ = star_banded_sgns_step(
+        jnp.asarray(emb), jnp.asarray(slots), jnp.asarray(meta),
+        jnp.asarray(pools[0]), lr, negw, row_block=row_block,
+        mxu_bf16=False,
+    )
+    assert float(jnp.max(jnp.abs(one - ne))) > 1e-4
+    with pytest.raises(ValueError, match="per-block pools"):
+        star_banded_sgns_step(
+            jnp.asarray(emb), jnp.asarray(slots), jnp.asarray(meta),
+            jnp.asarray(pools[:-1]), lr, negw, row_block=row_block,
+        )
+
+
+@pytest.mark.parametrize(
+    "kp,mass,rows_per_step",
+    [(128, 275, 32), (16, 275, 32), (128, 40, 64), (2048, 275, 2048),
+     (4, 1, 24)],
+)
+def test_star_row_block_bounds_pool_mass(kp, mass, rows_per_step):
+    """The star block is the largest divisor of the macro step that keeps
+    one pool's gradient mass (pairs x negative / KP) within
+    banded_pool_mass and the block within _STAR_ROW_BLOCK rows."""
+    g, _ = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
+    cfg = ComEConfig(
+        dim=16, num_communities=4, negative_mode="shared",
+        shared_negatives=kp, banded_pool_mass=mass,
+    )
+    t = ComETrainer(g, cfg)
+    t._star_layout()
+    per_row = t._star_pairs / t._star_rows_slots.shape[0]
+
+    def ok(b):
+        fits = b * per_row * cfg.negative / kp <= mass or b == 1
+        return rows_per_step % b == 0 and b <= t._STAR_ROW_BLOCK and fits
+
+    rb = t._star_row_block(rows_per_step)
+    assert ok(rb)
+    assert not any(ok(b) for b in range(rb + 1, rows_per_step + 1))

@@ -1,25 +1,16 @@
-"""Star O2 tier: layout builder invariants + kernel vs numpy group oracle.
+"""Star O2 tier: layout builder invariants.
 
-The star kernel's semantics (group-synchronous tied-table SGNS over
-hub/fan-out segments) are gated here in interpret mode; the compiled
-kernel is gated against interpret mode on hardware by
-scripts/verify_kernels_tpu.py (star-o2 tier).
+The banded star step that trains this layout is gated against the numpy
+oracle in tests/test_star_banded.py.
 """
 
-import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from come_tpu.ops.pallas_star_sgns import NWL, fused_star_sgns_step
 from come_tpu.sampling.stars import (
     PAD_META,
     build_star_layout,
     star_layout_stats,
 )
-
-
-def _sig(x):
-    return 1.0 / (1.0 + np.exp(-x))
 
 
 def _rand_edges(rng, V, E):
@@ -111,7 +102,7 @@ def test_layout_orients_to_higher_degree_hub():
 
 def test_layout_pairs_per_slot_beats_paired_tier(rng):
     """On a BlogCatalog-shaped graph the layout must approach 2 pairs per
-    slot — the whole point of the tier (paired mode sits at 1.0)."""
+    slot — the whole point of the tier (one pair per slot sits at 1.0)."""
     from come_tpu.graphs import sbm_graph
 
     g, _ = sbm_graph(600, 5, p_in=0.1, p_out=0.01, seed=3)
@@ -119,194 +110,6 @@ def test_layout_pairs_per_slot_beats_paired_tier(rng):
     slots, meta = build_star_layout(u, v, g.num_nodes)
     st = star_layout_stats(slots, meta)
     assert st["pairs_per_slot"] > 1.6
-
-
-# --------------------------------------------------------------- kernel
-
-
-def ref_star_group(emb, slots, meta, sneg, lr, negw):
-    """One group (NWL slots) applied synchronously; pool staged at start,
-    applied at the end — the kernel's group semantics, tied table."""
-    emb = emb.copy()
-    S = slots.shape[0]
-    phi = emb[slots].copy()
-    cneg = emb[sneg].copy()
-
-    seg = meta >> 1
-    hub = meta & 1
-    blk = np.arange(S) // 128
-    m = (
-        (seg[:, None] == seg[None, :])
-        & ((hub[:, None] ^ hub[None, :]) == 1)
-        & (blk[:, None] == blk[None, :])
-        & (meta[:, None] != PAD_META)
-        & (meta[None, :] != PAD_META)
-    ).astype(np.float32)
-
-    s = phi @ phi.T
-    g = (_sig(s) - 1.0) * m
-    loss = -np.sum(m * np.log(np.maximum(_sig(s), 1e-30)))
-    n_t = m.sum(1, keepdims=True)
-    dphi = g @ phi + g.T @ phi  # tied: source + context side on one row
-
-    sn = phi @ cneg.T
-    gneg = _sig(sn) * (negw * n_t)
-    loss += -negw * np.sum(n_t * np.log(np.maximum(_sig(-sn), 1e-30)))
-    dphi += gneg @ cneg
-    dneg = gneg.T @ phi
-
-    for t in range(S):  # sequential RMW like the kernel's scatter loop
-        emb[slots[t]] -= lr * dphi[t]
-    np.add.at(emb, sneg, -lr * dneg)
-    return emb, loss, float(n_t.sum())
-
-
-def _layout_group(rng, V, E):
-    u, v = _rand_edges(rng, V, E)
-    slots, meta = build_star_layout(u, v, V)
-    T = slots.shape[0]
-    assert T <= NWL
-    slots = np.pad(slots, (0, NWL - T))
-    meta = np.pad(meta, (0, NWL - T), constant_values=PAD_META)
-    return slots, meta
-
-
-def test_star_kernel_matches_reference(rng):
-    V, d, KP = 60, 128, 16
-    emb = rng.normal(size=(V, d)).astype(np.float32) * 0.1
-    slots, meta = _layout_group(rng, V, 300)
-    sneg = rng.integers(0, V, KP).astype(np.int32)
-    lr, negw = 0.05, 5.0 / KP
-
-    ne, loss, npairs = fused_star_sgns_step(
-        jnp.asarray(emb), jnp.asarray(slots), jnp.asarray(meta),
-        jnp.asarray(sneg), lr, negw, seed=0, interpret=True,
-    )
-    re, rloss, rn = ref_star_group(emb, slots, meta, sneg, lr, negw)
-    assert float(npairs) == rn == 600.0  # 2 pairs per edge
-    np.testing.assert_allclose(float(loss), rloss, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(ne), re, rtol=1e-3, atol=2e-5)
-
-
-def test_star_kernel_multi_group_sequential(rng):
-    """Group 1 must see group 0's updates (sequential grid), per-group
-    pools must be staged fresh and applied at their own boundary."""
-    V, d, KP = 80, 128, 8
-    emb = rng.normal(size=(V, d)).astype(np.float32) * 0.1
-    s0, m0 = _layout_group(rng, V, 280)
-    s1, m1 = _layout_group(rng, V, 310)
-    # give group 1 distinct seg ids so concatenation stays valid
-    m1 = np.where(m1 != PAD_META, m1 + 2048, m1)
-    slots = np.concatenate([s0, s1])
-    meta = np.concatenate([m0, m1])
-    sneg = rng.integers(0, V, (2, KP)).astype(np.int32)
-    lr, negw = 0.05, 5.0 / KP
-
-    ne, loss, npairs = fused_star_sgns_step(
-        jnp.asarray(emb), jnp.asarray(slots), jnp.asarray(meta),
-        jnp.asarray(sneg), lr, negw, seed=0, interpret=True,
-    )
-    e = emb.copy()
-    total = 0.0
-    for gi, (ss, mm) in enumerate([(s0, m0), (s1, m1)]):
-        e, lg, _ = ref_star_group(e, ss, mm, sneg[gi], lr, negw)
-        total += lg
-    assert float(npairs) == 2.0 * (280 + 310)
-    np.testing.assert_allclose(float(loss), total, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(ne), e, rtol=1e-3, atol=3e-5)
-
-
-def test_star_kernel_pool_refresh_blocks(rng):
-    """R=2: one pool staged per 2-group block, gradient applied at the
-    block end (walk-kernel pool discipline)."""
-    V, d, KP = 90, 128, 8
-    emb = rng.normal(size=(V, d)).astype(np.float32) * 0.1
-    groups = []
-    for gi in range(4):
-        s, m = _layout_group(rng, V, 250 + 10 * gi)
-        m = np.where(m != PAD_META, m + gi * 2048, m)
-        groups.append((s, m))
-    slots = np.concatenate([s for s, _ in groups])
-    meta = np.concatenate([m for _, m in groups])
-    sneg = rng.integers(0, V, (2, KP)).astype(np.int32)
-    lr, negw = 0.05, 5.0 / KP
-
-    ne, loss, npairs = fused_star_sgns_step(
-        jnp.asarray(emb), jnp.asarray(slots), jnp.asarray(meta),
-        jnp.asarray(sneg), lr, negw, seed=0, interpret=True,
-        pool_refresh=2,
-    )
-
-    def group_grads(e, ss, mm, cneg0):
-        phi = e[ss].copy()
-        seg = mm >> 1
-        hub = mm & 1
-        blk = np.arange(ss.shape[0]) // 128
-        m = (
-            (seg[:, None] == seg[None, :])
-            & ((hub[:, None] ^ hub[None, :]) == 1)
-            & (blk[:, None] == blk[None, :])
-            & (mm[:, None] != PAD_META)
-            & (mm[None, :] != PAD_META)
-        ).astype(np.float32)
-        s = phi @ phi.T
-        g = (_sig(s) - 1.0) * m
-        loss = -np.sum(m * np.log(np.maximum(_sig(s), 1e-30)))
-        n_t = m.sum(1, keepdims=True)
-        dphi = g @ phi + g.T @ phi
-        sn = phi @ cneg0.T
-        gneg = _sig(sn) * (negw * n_t)
-        loss += -negw * np.sum(n_t * np.log(np.maximum(_sig(-sn), 1e-30)))
-        dphi += gneg @ cneg0
-        dneg = gneg.T @ phi
-        for t in range(ss.shape[0]):
-            e[ss[t]] -= lr * dphi[t]
-        return loss, dneg
-
-    e = emb.copy()
-    total = 0.0
-    for blk in range(2):
-        cneg0 = e[sneg[blk]].copy()
-        dneg_acc = np.zeros((KP, d), np.float32)
-        for gi in range(2):
-            ss, mm = groups[2 * blk + gi]
-            lg, dn = group_grads(e, ss, mm, cneg0)
-            total += lg
-            dneg_acc += dn
-        np.add.at(e, sneg[blk], -lr * dneg_acc)
-    np.testing.assert_allclose(float(loss), total, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(ne), e, rtol=1e-3, atol=3e-5)
-
-
-def test_star_kernel_mxu_bf16_close_to_f32(rng):
-    V, d, KP = 60, 128, 16
-    emb = rng.normal(size=(V, d)).astype(np.float32) * 0.1
-    slots, meta = _layout_group(rng, V, 300)
-    sneg = rng.integers(0, V, KP).astype(np.int32)
-    lr, negw = 0.05, 5.0 / KP
-    f32 = fused_star_sgns_step(
-        jnp.asarray(emb), jnp.asarray(slots), jnp.asarray(meta),
-        jnp.asarray(sneg), lr, negw, seed=0, interpret=True,
-    )
-    b16 = fused_star_sgns_step(
-        jnp.asarray(emb), jnp.asarray(slots), jnp.asarray(meta),
-        jnp.asarray(sneg), lr, negw, seed=0, interpret=True, mxu_bf16=True,
-    )
-    assert float(jnp.abs(f32[0] - b16[0]).max()) > 0.0  # flag reaches kernel
-    np.testing.assert_allclose(
-        np.asarray(b16[0]), np.asarray(f32[0]), rtol=0.05, atol=2e-3
-    )
-
-
-def test_star_kernel_rejects_non_f32():
-    with pytest.raises(ValueError, match="f32"):
-        fused_star_sgns_step(
-            jnp.zeros((8, 128), jnp.bfloat16),
-            jnp.zeros((NWL,), jnp.int32),
-            jnp.full((NWL,), -2, jnp.int32),
-            jnp.zeros((4,), jnp.int32),
-            0.01, 1.0, seed=0, interpret=True,
-        )
 
 
 def test_layout_fat_hub_capacity():

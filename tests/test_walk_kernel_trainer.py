@@ -1,26 +1,30 @@
-"""Walk-banded kernel through the trainer (interpret mode, SBM graph)."""
+"""Tier selection and the walk-banded O1 tier through both trainers.
 
+Tier choice depends only on the input size, the config and the collision
+envelope (summed updates per table row from one synchronous block), so the
+same rules hold on the CPU as on the GPU.
+"""
+
+import jax
 import numpy as np
+import pytest
 
 from come_tpu.config import ComEConfig
 from come_tpu.evaluation import nmi_score
 from come_tpu.graphs import sbm_graph
+from come_tpu.parallel import ShardedComETrainer, make_mesh
 from come_tpu.trainer import ComETrainer
 
 
 def _cfg(**kw):
     base = dict(
-        dim=128,  # kernel requires lane-width embeddings
+        dim=128,
         num_communities=4,
         walk_length=16,
         walks_per_node=2,
         window=4,
         negative_mode="shared",
-        # pool coverage: the walk kernel refreshes its negative pool once
-        # per macro step, so pool-draws/epoch = macros * KP must be >= ~2V
-        # for healthy repulsion (here 16 * 128 = 2048 for V=512)
         shared_negatives=128,
-        pallas="always",
         batch_walks=32,
         batch_edges=1024,
         batch_pairs=4096,
@@ -34,10 +38,14 @@ def _cfg(**kw):
     return ComEConfig(**base)
 
 
-def test_walk_kernel_selected_and_trains():
+def _graph(v, seed=0):
+    return sbm_graph(v, 4, avg_degree=6.0, seed=seed)[0]
+
+
+def test_banded_selected_and_trains():
     g, labels = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
     t = ComETrainer(g, _cfg())
-    assert t._use_walk_kernel()
+    assert t.o1_tier() == "banded"
     first = t.o1_epoch()
     losses = [t.o1_epoch() for _ in range(7)]
     assert np.isfinite(first) and losses[-1] < first
@@ -50,67 +58,112 @@ def test_tiny_graph_falls_back():
     from come_tpu.graphs import get_dataset
 
     ds = get_dataset("karate")
-    cfg = get_config("karate").replace(
-        negative_mode="shared", pallas="always"
-    )
+    cfg = get_config("karate").replace(negative_mode="shared")
     t = ComETrainer(ds.graph, cfg)
-    assert not t._use_walk_kernel()  # collision gate
+    assert not t._use_banded()  # collision gate
+    assert t.o1_tier() == "xla"
 
 
-def test_walk_kernel_data_parallel_mesh():
-    """DP fused path: kernel per data shard, deltas psum'd, replicas equal."""
-    import jax
-    import jax.numpy as jnp
-
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
-
-    g, labels = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    mesh = make_mesh(data=4, model=1, devices=jax.devices()[:4])
-    t = ShardedComETrainer(g, _cfg(batch_walks=64), mesh)
-    assert t._use_walk_kernel()
-    first = t.o1_epoch()
-    losses = [t.o1_epoch() for _ in range(5)]
-    assert np.isfinite(first) and losses[-1] < first
-    # replicas of the table must be bit-identical across the data axis
-    shards = [
-        np.asarray(s.data) for s in t.state.params.node_emb.addressable_shards
-    ]
-    for s in shards[1:]:
-        np.testing.assert_array_equal(shards[0], s)
-    t.fit_gmm()
-    assert nmi_score(labels, t.communities()) > 0.5
+# collisions = 2 * bc * L * (W+1)/2 / V with L=16, W=4: 80 * bc / V; auto
+# halves the block until it is <= 16, but not below 8 walks
+@pytest.mark.parametrize(
+    "v,batch_walks,expected,block",
+    [
+        (512, 32, "banded", 32),  # 5
+        (512, 128, "banded", 64),  # 20 > 16, halved: 10
+        (2048, 128, "banded", 128),  # 5
+        (640, 128, "banded", 128),  # 16, inclusive bound
+        (64, 8, "banded", 8),  # 10
+        (64, 32, "banded", 8),  # 40, 20, then 10
+        (32, 32, "xla", 0),  # 80, 40, 20; 4 walks is below the floor
+    ],
+)
+def test_o1_tier_selection_single_device(v, batch_walks, expected, block):
+    t = ComETrainer(_graph(v), _cfg(batch_walks=batch_walks))
+    assert t.o1_tier() == expected
+    assert t._banded_block(batch_walks) == block
 
 
-def test_walk_kernel_requires_a2a():
-    """model>1 with the EXPLICIT psum exchange falls back to the XLA
-    sharded path (the row-sharded kernel tier needs the bucketed a2a)."""
-    import jax
+# walks per pool = mass * KP // (L * (W+1) * negative)
+@pytest.mark.parametrize(
+    "kw,per_pool,block,chunks",
+    [
+        # blogcatalog preset widths: 275 * 512 // 4400 = 32 walks, so a
+        # 128-walk block draws 4 fresh pools
+        (dict(walk_length=80, window=10, shared_negatives=512), 32, 128, 4),
+        # synthetic-10m preset widths: 128 walks per pool
+        (dict(walk_length=80, window=10, shared_negatives=2048), 128, 1024,
+         8),
+        # the chunk count rounds up to a divisor of the block
+        (dict(shared_negatives=128), 88, 96, 2),
+        (dict(shared_negatives=128), 88, 90, 2),
+        (dict(shared_negatives=128), 88, 7, 1),
+        (dict(shared_negatives=4, banded_pool_mass=1), 1, 12, 12),
+    ],
+)
+def test_pool_chunks_bound_pool_mass(kw, per_pool, block, chunks):
+    t = ComETrainer(_graph(512), _cfg(**kw))
+    assert t._walks_per_pool() == per_pool
+    c = t._pool_chunks(block)
+    assert c == chunks and block % c == 0
+    assert block // c <= per_pool or c == block
 
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
 
-    g, _ = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
-    t = ShardedComETrainer(g, _cfg(row_exchange="psum"), mesh)
-    assert t.row_exchange == "psum"
-    assert not t._use_walk_kernel()
-    assert t.o1_tier() == "xla-psum"
-    assert np.isfinite(t.o1_epoch())  # XLA path still trains
+@pytest.mark.parametrize(
+    "shape,v,expected",
+    [
+        ((1, 1), 512, "banded-dp"),  # bc 32: 80*32/512 = 5
+        ((4, 1), 512, "banded-dp"),  # bc 8, 4 workers: 5
+        ((8, 1), 512, "banded-dp"),  # bc 4, 8 workers: 5
+        ((2, 2), 512, "banded-rowsharded"),  # bc 8, 4 workers: 5
+        ((2, 2), 64, "xla-a2a"),  # 40 > 16
+        ((4, 1), 64, "xla-psum"),  # 40 > 16
+    ],
+)
+def test_o1_tier_selection_mesh(shape, v, expected):
+    d, m = shape
+    mesh = make_mesh(data=d, model=m, devices=jax.devices()[: d * m])
+    t = ShardedComETrainer(_graph(v), _cfg(), mesh)
+    assert t.o1_tier() == expected
+
+
+# star collisions = 2 * 512 rows * 128 slots / V: the bound is V = 8192
+@pytest.mark.parametrize(
+    "v,kw,expected",
+    [
+        (8192, {}, "banded-star"),
+        (8191, {}, "xla"),
+        (8192, {"o2_mode": "xla"}, "xla"),
+        (8192, {"banded": "never"}, "xla"),
+        (8192, {"negative_mode": "per_pair"}, "xla-per-pair"),
+        (64, {"banded": "always"}, "banded-star"),
+        # o2_mode forces the O2 tier whatever banded says of O1
+        (8192, {"banded": "never", "o2_mode": "star"}, "banded-star"),
+        (64, {"o2_mode": "star"}, "banded-star"),
+        (8192, {"banded": "always", "o2_mode": "xla"}, "xla"),
+    ],
+)
+def test_o2_tier_selection(v, kw, expected):
+    t = ComETrainer(_graph(v), _cfg(**kw))
+    assert t.o2_tier() == expected
+
+
+def test_o2_mode_rejects_unknown():
+    t = ComETrainer(_graph(64), _cfg(o2_mode="paired"))
+    with pytest.raises(ValueError, match="o2_mode"):
+        t.o2_tier()
 
 
 def test_default_exchange_is_a2a_at_model_gt_1():
     """row_exchange='auto' (the default) resolves to the bucketed a2a on
-    any model>1 mesh — the flagship row-sharded tiers are what a user
-    gets with no flags (VERDICT r2 next-round item 1)."""
-    import jax
-
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
-
+    any model>1 mesh — the row-sharded banded tier is what a user gets
+    with no flags (VERDICT r2 next-round item 1)."""
     g, _ = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
     assert ComEConfig().row_exchange == "auto"
     mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
     t = ShardedComETrainer(g, _cfg(), mesh)  # default exchange
     assert t.row_exchange == "a2a"
-    assert t.o1_tier() == "walk-kernel-rowsharded"
+    assert t.o1_tier() == "banded-rowsharded"
     # model=1 meshes don't need (or build) the exchange machinery
     mesh1 = make_mesh(data=4, model=1, devices=jax.devices()[:4])
     t1 = ShardedComETrainer(g, _cfg(), mesh1)
@@ -118,269 +171,34 @@ def test_default_exchange_is_a2a_at_model_gt_1():
     assert t1._perm is None
 
 
-def test_walk_kernel_rowsharded_trains():
-    """The model>1 row-sharded fused-kernel tier (walk_exchange.py): walks
-    model-sliced, rows exchanged via bucketed a2a into compact VMEM tables,
-    deltas routed back to owners.  Round-1 regression: this config used to
-    select the kernel but feed GLOBAL walk ids to the LOCAL table shard,
-    silently training garbage (loss ~8.5e33 on this exact mesh)."""
-    import jax
-
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
-
-    g, labels = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
-    t = ShardedComETrainer(g, _cfg(row_exchange="a2a"), mesh)
-    assert t._use_walk_kernel()
-    assert t.o1_tier() == "walk-kernel-rowsharded"
-    first = t.o1_epoch()
-    assert np.isfinite(first) and first < 10.0  # not the 8.5e33 garbage
-    assert t.last_o1_served == 1.0  # exposed + no bucket overflow here
-    losses = [t.o1_epoch() for _ in range(6)]
-    assert losses[-1] < first
-    assert np.abs(t.embeddings()).max() < 10.0
-    t.fit_gmm()
-    assert nmi_score(labels, t.communities()) > 0.5
-    # replicas of each table shard stay bit-identical across 'data'
-    by_index: dict = {}
-    for s in t.state.params.node_emb.addressable_shards:
-        key = str(s.index)
-        if key in by_index:
-            np.testing.assert_array_equal(by_index[key], np.asarray(s.data))
-        else:
-            by_index[key] = np.asarray(s.data)
-    assert len(by_index) == 2
-
-
-def test_walk_kernel_rowsharded_matches_xla_quality():
-    """Row-sharded kernel tier reaches the XLA sharded path's loss class
-    on the same graph/schedule (stream-wise RNG differs; quality parity)."""
-    import jax
-
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
-
-    g, labels = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
-    tk = ShardedComETrainer(g, _cfg(row_exchange="a2a"), mesh)
-    assert tk.o1_tier() == "walk-kernel-rowsharded"
-    tx = ShardedComETrainer(
-        g, _cfg(pallas="never", row_exchange="psum"), mesh
-    )
-    assert tx.o1_tier() == "xla-psum"
-    for _ in range(5):
-        lk = tk.o1_epoch()
-        lx = tx.o1_epoch()
-    assert np.isfinite(lk) and np.isfinite(lx)
-    assert lk < 1.35 * lx, (lk, lx)
-
-
-def test_walk_kernel_rowsharded_vmem_gate():
-    """The compact-table footprint (U = walks*L + pools*KP rows) must fit
-    the kernel's per-table VMEM budget; oversized walk batches fall back."""
-    import jax
-
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
-
-    g, _ = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
-    # U ~ (batch_walks/(D*M)) * L = 131072/4*16 = 524288 rows
-    # -> 524288*128*4 = 256MB > 48MB per table: gate must reject
-    # (walks_per_node=512 so n_starts doesn't clamp the batch below that)
-    t = ShardedComETrainer(
-        g,
-        _cfg(row_exchange="a2a", batch_walks=131072, walks_per_node=512),
-        mesh,
-    )
-    assert not t._use_walk_kernel()
-    assert t.o1_tier() == "xla-a2a"
-
-
 def test_collision_envelope_boundary():
     """Pin the stability-envelope threshold: collisions_per_row <= 16 with
-    collisions = 2 * NW * L * (W+1)/2 / V.  At L=16, W=4, NW=8 the bound
+    collisions = 2 * Bc * L * (W+1)/2 / V.  At L=16, W=4, Bc=8 the bound
     flips exactly at V = 40."""
     gb, _ = sbm_graph(40, 4, p_in=0.3, p_out=0.05, seed=0)
-    tb = ComETrainer(gb, _cfg())
-    assert tb._use_walk_kernel()  # collisions == 16.0, inclusive bound
+    tb = ComETrainer(gb, _cfg(banded_walk_block=8))
+    assert tb._use_banded()  # collisions == 16.0, inclusive bound
     gs, _ = sbm_graph(39, 3, p_in=0.3, p_out=0.05, seed=0)
-    ts = ComETrainer(gs, _cfg(num_communities=3))
-    assert not ts._use_walk_kernel()  # 16.4 > 16: rejected
-
-
-def test_o2_paired_kernel_selected_and_trains():
-    """O2 through the paired (edge-mode) walk kernel: selected at shared
-    negatives + f32-VMEM V, trains both arc directions per edge with
-    exact pair counts, loss decreases, and embeddings pull edge endpoints
-    together (the first-order proximity objective, SURVEY.md C7)."""
-    g, labels = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    t = ComETrainer(g, _cfg(alpha=1.0, o2_mode="paired"))
-    assert t._use_walk_kernel_o2()
-    assert not t._use_star_o2()  # mode pin keeps the paired tier testable
-    first = t.o2_epoch()
-    # exact counter: every undirected edge trained in both directions
-    e2 = len(g.edges_undirected()[0])
-    rows = -(-e2 // 64)
-    assert t.last_o2_pairs == rows * 128, (t.last_o2_pairs, e2)
-    losses = [t.o2_epoch() for _ in range(7)]
-    assert np.isfinite(first) and losses[-1] < first
-    emb = np.asarray(t.state.params.node_emb)
-    assert np.abs(emb).max() < 10.0
-    # the first-order objective: edge endpoints end up more similar than
-    # random node pairs
-    u, v = g.edges_undirected()
-    norm = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9)
-    rng = np.random.default_rng(0)
-    ru = rng.integers(0, g.num_nodes, len(u))
-    rv = rng.integers(0, g.num_nodes, len(u))
-    edge_sim = float(np.mean(np.sum(norm[u] * norm[v], axis=1)))
-    rand_sim = float(np.mean(np.sum(norm[ru] * norm[rv], axis=1)))
-    assert edge_sim > rand_sim + 0.1, (edge_sim, rand_sim)
+    ts = ComETrainer(gs, _cfg(num_communities=3, banded_walk_block=8))
+    assert not ts._use_banded()  # 16.4 > 16: rejected
 
 
 def test_o2_kernel_gate_falls_back():
     """Tiny graphs (collision envelope) and per-pair mode use the flat
-    paths, not the paired kernel."""
+    O2 paths, not the banded star tier, and still train."""
     g, _ = sbm_graph(64, 4, p_in=0.3, p_out=0.02, seed=0)
     t = ComETrainer(g, _cfg())
-    assert not t._use_walk_kernel_o2()  # V=64 < collision bound
+    assert not t._use_banded_star_o2()  # V=64 < collision bound
+    assert np.isfinite(t.o2_epoch())
     g2, _ = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
     t2 = ComETrainer(g2, _cfg(negative_mode="per_pair", negative=3))
-    assert not t2._use_walk_kernel_o2()
+    assert t2.o2_tier() == "xla-per-pair"
     assert np.isfinite(t2.o2_epoch())
 
 
-def test_o2_star_kernel_selected_and_trains():
-    """O2 through the STAR (fan-out grouped, tied) kernel — the default
-    fast tier: selected under 'auto', trains every undirected edge in
-    both directions with exact pair counts, loss decreases, and edge
-    endpoints pull together (SURVEY.md C7 first-order objective)."""
-    g, labels = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    t = ComETrainer(g, _cfg(alpha=1.0))
-    assert t._use_star_o2()  # auto prefers star over paired
-    first = t.o2_epoch()
-    e2 = len(g.edges_undirected()[0])
-    assert t.last_o2_pairs == 2 * e2, (t.last_o2_pairs, e2)
-    losses = [t.o2_epoch() for _ in range(7)]
-    assert np.isfinite(first) and losses[-1] < first
-    emb = np.asarray(t.state.params.node_emb)
-    assert np.abs(emb).max() < 10.0
-    u, v = g.edges_undirected()
-    norm = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9)
-    rng = np.random.default_rng(0)
-    ru = rng.integers(0, g.num_nodes, len(u))
-    rv = rng.integers(0, g.num_nodes, len(u))
-    edge_sim = float(np.mean(np.sum(norm[u] * norm[v], axis=1)))
-    rand_sim = float(np.mean(np.sum(norm[ru] * norm[rv], axis=1)))
-    assert edge_sim > rand_sim + 0.1, (edge_sim, rand_sim)
-
-
-def _edge_sim_gap(g, emb):
-    """Mean cosine similarity of edge endpoints minus random pairs."""
-    u, v = g.edges_undirected()
-    norm = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9)
-    rng = np.random.default_rng(0)
-    ru = rng.integers(0, g.num_nodes, len(u))
-    rv = rng.integers(0, g.num_nodes, len(u))
-    edge_sim = float(np.mean(np.sum(norm[u] * norm[v], axis=1)))
-    rand_sim = float(np.mean(np.sum(norm[ru] * norm[rv], axis=1)))
-    return edge_sim - rand_sim
-
-
-def test_o2_paired_kernel_dp_mesh():
-    """O2 through the paired kernel on a (4,1) data-parallel mesh (VERDICT
-    r3 item 1): each data shard runs the kernel on its edge rows, the TIED
-    delta (new_in + new_out - 2*old) psums over 'data', replicas stay
-    bit-identical, and quality holds (first-order proximity)."""
-    import jax
-
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
-
-    g, _ = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    mesh = make_mesh(data=4, model=1, devices=jax.devices()[:4])
-    t = ShardedComETrainer(g, _cfg(alpha=1.0, o2_mode="paired"), mesh)
-    assert t.o2_tier() == "walk-kernel-paired-dp"
-    first = t.o2_epoch()
-    # exact counter: every packed slot (2 arcs/edge, wrapped to the row
-    # grid) is trained
-    S, B_r = t._o2_rows_global()
-    assert t.last_o2_pairs == S * B_r * 128, (t.last_o2_pairs, S, B_r)
-    losses = [t.o2_epoch() for _ in range(7)]
-    assert np.isfinite(first) and losses[-1] < first
-    shards = [
-        np.asarray(s.data)
-        for s in t.state.params.node_emb.addressable_shards
-    ]
-    for s in shards[1:]:
-        np.testing.assert_array_equal(shards[0], s)
-    assert _edge_sim_gap(g, t.embeddings()) > 0.1
-
-
-def test_o2_star_kernel_dp_mesh():
-    """O2 through the STAR tier on a (4,1) data-parallel mesh — the
-    default fast dp tier: star rows sliced over 'data', each shard runs
-    the tied kernel, deltas psum, replicas bit-identical, exact pair
-    counts (pad rows self-mask — no wrap-retraining), quality holds."""
-    import jax
-
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
-
-    g, _ = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    mesh = make_mesh(data=4, model=1, devices=jax.devices()[:4])
-    t = ShardedComETrainer(g, _cfg(alpha=1.0), mesh)
-    assert t.o2_tier() == "star-o2-dp"  # auto prefers star at model=1
-    first = t.o2_epoch()
-    e2 = len(g.edges_undirected()[0])
-    assert t.last_o2_pairs == 2 * e2, (t.last_o2_pairs, e2)
-    losses = [t.o2_epoch() for _ in range(7)]
-    assert np.isfinite(first) and losses[-1] < first
-    shards = [
-        np.asarray(s.data)
-        for s in t.state.params.node_emb.addressable_shards
-    ]
-    for s in shards[1:]:
-        np.testing.assert_array_equal(shards[0], s)
-    assert _edge_sim_gap(g, t.embeddings()) > 0.1
-
-
-def test_o2_paired_kernel_rowsharded_trains():
-    """O2 through the ROW-SHARDED paired-kernel tier on a (2,2) mesh: edge
-    rows model-sliced, tied endpoint rows a2a-gathered into one compact
-    table per worker, dn+dc routed back to owners (VERDICT r3 item 1 —
-    O2's first mesh tier beyond the XLA micro-batched path)."""
-    import jax
-
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
-
-    g, _ = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
-    t = ShardedComETrainer(g, _cfg(alpha=1.0), mesh)
-    assert t.o2_tier() == "walk-kernel-paired-rowsharded"
-    first = t.o2_epoch()
-    assert np.isfinite(first) and first < 10.0
-    assert t.last_o2_served == 1.0
-    losses = [t.o2_epoch() for _ in range(7)]
-    assert losses[-1] < first
-    # replicas of each table shard stay bit-identical across 'data'
-    by_index: dict = {}
-    for s in t.state.params.node_emb.addressable_shards:
-        key = str(s.index)
-        if key in by_index:
-            np.testing.assert_array_equal(by_index[key], np.asarray(s.data))
-        else:
-            by_index[key] = np.asarray(s.data)
-    assert len(by_index) == 2
-    assert _edge_sim_gap(g, t.embeddings()) > 0.1
-
-
 def test_o2_kernel_mesh_gates():
-    """O2 mesh tier gates: the row-sharded form needs the a2a exchange
-    (psum falls back to xla-psum), per-pair mode uses the per-pair path,
-    and a collision-bound graph falls back at mesh scale even where the
-    single-chip gate would pass."""
-    import jax
-
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
-
+    """O2 mesh tiers: the bucketed a2a at model>1, psum when asked for,
+    per-pair mode on the per-pair path, psum at model=1."""
     g, _ = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
     mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
     t = ShardedComETrainer(g, _cfg(row_exchange="psum"), mesh)
@@ -390,85 +208,29 @@ def test_o2_kernel_mesh_gates():
         g, _cfg(negative_mode="per_pair", negative=3), mesh
     )
     assert t2.o2_tier() == "xla-per-pair"
-    # forced modes are honored on the MESH trainer too (round-5 review
-    # finding: the sharded paired gate ignored o2_mode)
     t3 = ShardedComETrainer(g, _cfg(o2_mode="xla"), mesh)
-    assert t3.o2_tier() in ("xla-psum", "xla-a2a"), t3.o2_tier()
-    mesh_dp = make_mesh(data=4, model=1, devices=jax.devices()[:4])
-    t4 = ShardedComETrainer(g, _cfg(o2_mode="xla"), mesh_dp)
-    assert not t4._use_star_o2() and not t4._use_walk_kernel_o2()
-    # collision envelope widens with workers: V=512 passes at 4 workers
-    # (2*1024*4/512 = 16) but an 8-worker mesh must reject (32 > 16)
-    mesh8 = make_mesh(data=4, model=2, devices=jax.devices()[:8])
-    t3 = ShardedComETrainer(g, _cfg(), mesh8)
     assert t3.o2_tier() == "xla-a2a"
-
-
-def test_walk_kernel_dp_bf16_tables():
-    """bf16-resident tables under the data-parallel mesh (VERDICT r2 item
-    9): the kernel trains each shard's bf16 tables, cross-shard deltas
-    accumulate in f32 and round back once — replicas bit-identical, loss
-    decreases, quality holds.  The VMEM budget is shrunk so V=512 forces
-    the bf16 tier on the CPU suite."""
-    import jax
-
-    from come_tpu.parallel import ShardedComETrainer, make_mesh
-
-    g, labels = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    mesh = make_mesh(data=4, model=1, devices=jax.devices()[:4])
-    t = ShardedComETrainer(g, _cfg(batch_walks=64), mesh)
-    t._vmem_budget = 200 * 1024  # 512*128*4 = 256KB > budget -> bf16 tier
-    import jax.numpy as jnp
-
-    assert t._walk_table_dtype() == jnp.bfloat16
-    assert t._use_walk_kernel()
-    assert t.o1_tier() == "walk-kernel-dp"
-    first = t.o1_epoch()
-    losses = [t.o1_epoch() for _ in range(7)]
-    assert np.isfinite(first) and losses[-1] < first
-    # master tables come back f32 at the epoch boundary
-    assert t.state.params.node_emb.dtype == jnp.float32
-    shards = [
-        np.asarray(s.data)
-        for s in t.state.params.node_emb.addressable_shards
-    ]
-    for s in shards[1:]:
-        np.testing.assert_array_equal(shards[0], s)
-    t.fit_gmm()
-    assert nmi_score(labels, t.communities()) > 0.5
-
-
-def test_walk_gen_kernel_trains():
-    """walk_gen='kernel': the trainer's O1 epoch runs with in-kernel walk
-    generation (no walker scan), trains, and reaches the same quality as
-    the scan-walker kernel path."""
-    g, labels = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
-    t = ComETrainer(g, _cfg(walk_gen="kernel"))
-    assert t._use_walk_kernel_gen()
-    first = t.o1_epoch()
-    assert hasattr(t, "_csr_indptr1d")  # gen path actually taken
-    losses = [t.o1_epoch() for _ in range(7)]
-    assert np.isfinite(first) and losses[-1] < first
-    t.fit_gmm()
-    assert nmi_score(labels, t.communities()) > 0.5
+    mesh_dp = make_mesh(data=4, model=1, devices=jax.devices()[:4])
+    t4 = ShardedComETrainer(g, _cfg(), mesh_dp)
+    assert t4.o2_tier() == "xla-psum"
 
 
 def test_down_sample_tier_downgrade_warns():
-    """down_sample > 0 gates out the fused tiers — that must be LOUD
+    """down_sample > 0 gates out the banded O1 tier — that must be LOUD
     (VERDICT r4 item 6), and the XLA fallback must still train."""
     import warnings
 
     g, _ = sbm_graph(512, 4, p_in=0.2, p_out=0.01, seed=3)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
-        t = ComETrainer(g, _cfg(down_sample=1e-3))
+        t = ComETrainer(g, _cfg(down_sample=1e-3, banded="always"))
     assert any("down_sample" in str(x.message) for x in w), [
         str(x.message) for x in w
     ]
-    assert not t._use_walk_kernel()
-    # O2 doesn't subsample (edge pass trains every arc), so its fused
+    assert not t._use_banded()
+    # O2 doesn't subsample (edge pass trains every arc), so its banded
     # tier stays eligible
-    assert t._use_star_o2()
+    assert t._use_banded_star_o2()
     assert np.isfinite(t.o1_epoch())
 
 
@@ -476,11 +238,11 @@ def test_isolated_nodes_never_walked_or_updated():
     """Graphs with isolated nodes (the dblp stand-in has 11) must not
     blow up: the reference's random_walk yields a length-1 walk there
     (zero trainable pairs), while a static-shape stationary walk would
-    sum ~L*W identical self-pair updates per group and measurably
+    sum ~L*W identical self-pair updates per block and measurably
     diverge (norms 1e3+ then GMM NaN — the round-5 EVAL-sweep find).
     Start filtering restores reference semantics; isolated rows carry
     zero unigram mass, so their rows must stay EXACTLY at init."""
-    from come_tpu.graphs import CSRGraph, sbm_graph
+    from come_tpu.graphs import CSRGraph
 
     g0, _ = sbm_graph(496, 4, p_in=0.2, p_out=0.01, seed=3)
     # append 16 isolated nodes
@@ -492,7 +254,7 @@ def test_isolated_nodes_never_walked_or_updated():
     assert g.num_nodes == V
     t = ComETrainer(g, _cfg())
     assert len(t.walk_starts) == g0.num_nodes
-    assert t._use_walk_kernel()
+    assert t._use_banded()
     init = np.asarray(t.state.params.node_emb)[g0.num_nodes:].copy()
     for _ in range(4):
         loss = t.o1_epoch()
